@@ -8,17 +8,22 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
 1. card: name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. build: ``nvcc`` of every kernel, all started together, with each one's
    time and ptxas report;
-3. kernel vs plain version: the dense-layer kernel against
-   ``dense_layer_reference`` in bf16 at the first and last layer shape of
-   each DenseNet121-512 block (batch 8), a ragged 7x7 map and batch 1; times
-   of the kernel, the plain version and the two cuDNN convolutions of the
-   layer (the library yardstick); then the whole 58-layer stack of one
-   batch-8 forward the same three ways;
+3. kernel vs plain version: both dense-layer kernels (the persistent one
+   for the large maps, the tile one) against ``dense_layer_reference`` in
+   bf16 at the first and last layer shape of each DenseNet121-512 block
+   (batch 8), two more 64^2 shapes (the last c_in with w1 resident in the
+   persistent kernel and the first with w1 streamed), a ragged 7x7 map and
+   batch 1; device times of both kernels, which one the wrapper chooses,
+   times of the plain version and of the two cuDNN convolutions of the layer
+   (the library yardstick); then the whole 58-layer stack of one batch-8
+   forward, block by block: the wrapper's choice, each kernel alone, the
+   plain version and cuDNN;
 4. classifier path: ``FrameModel(DenseNet121)`` at 512^2 with seeded random
    weights in flax naming, loaded through ``bridge.load_flax``, served by
    ``serve.make_service``: 16 concurrent frames through its ``Batcher``,
    ``GET /healthz`` over HTTP, probabilities checked, 58 kernel launches per
-   batch, batch-8 logits against the plain-version forward;
+   batch (both kernels launched), batch-8 logits against the plain-version
+   forward;
 5. GRU kernel vs plain version: ``gru_recurrence`` against
    ``gru_recurrence_reference`` in f32 at the 0102 serving shape (T 128,
    batch 4, H 256), the evaluate batch (32), the default width (H 128) and
@@ -69,7 +74,10 @@ DATA_SHAPE = 512
 BATCH = 8
 N_REQUESTS = 16
 SEED = 0
-KERNELS = ["dense_layer", "gru_recurrence"]
+KERNELS = ["dense_layer", "dense_layer_persistent", "gru_recurrence"]
+# profiler name of each dense-layer kernel variant (neither name holds the other)
+DENSE_KERNELS = {"persistent": "dense_layer_persistent_kernel",
+                 "tile": "dense_layer_kernel"}
 
 # the 0102 captioner (README, train_gnmt flags): 0006 features, 2 GRU layers
 # of 256 (the first bidirectional), embeddings of 100, 4 specials + 250 words
@@ -91,10 +99,12 @@ GRU_CASES = [
 ]
 
 # (name, batch, side, c_in, c_final): first and last layer of each
-# DenseNet121-512 block at batch 8, a ragged map, batch 1
+# DenseNet121-512 block at batch 8, the last 64^2 layer with w1 resident in
+# the persistent kernel and the first with w1 streamed, a ragged map, batch 1
 LAYER_CASES = [
     ("block0_first", 8, 128, 64, 256), ("block0_last", 8, 128, 224, 256),
-    ("block1_first", 8, 64, 128, 512), ("block1_last", 8, 64, 480, 512),
+    ("block1_first", 8, 64, 128, 512), ("block1_c288", 8, 64, 288, 512),
+    ("block1_c320", 8, 64, 320, 512), ("block1_last", 8, 64, 480, 512),
     ("block2_first", 8, 32, 256, 1024), ("block2_last", 8, 32, 992, 1024),
     ("block3_first", 8, 16, 512, 1024), ("block3_last", 8, 16, 992, 1024),
     ("ragged_7x7", 8, 7, 512, 1024), ("batch1", 1, 128, 64, 256),
@@ -151,11 +161,22 @@ def device_profile(fn):
     return by_name
 
 
-def kernel_device(fn, name):
-    """(device ms, launches) of the kernels whose name holds ``name`` over
-    one call of ``fn``."""
-    hits = [v for k, v in device_profile(fn).items() if name in k]
+def kernel_device(fn, *names):
+    """(device ms, launches) of the kernels whose name holds one of
+    ``names`` over one call of ``fn``."""
+    hits = [v for k, v in device_profile(fn).items()
+            if any(n in k for n in names)]
     return sum(v[0] for v in hits), sum(v[1] for v in hits)
+
+
+def dense_device_ms(fn):
+    """Device ms of both dense-layer kernels over one call of ``fn``."""
+    return kernel_device(fn, *DENSE_KERNELS.values())[0]
+
+
+def all_device_ms(fn):
+    """Device ms of every kernel over one call of ``fn``."""
+    return sum(v[0] for v in device_profile(fn).values())
 
 
 def layer_work(batch, side, c_in, f=128, g=32):
@@ -201,87 +222,128 @@ def library_convs(state, c_in, ops):
 
 
 def kernel_phase():
+    """Both dense-layer kernels against the plain version at LAYER_CASES;
+    returns the worst max |kernel - plain| of each variant."""
     from tennis_torch.ops import dense_block as db
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    worst_abs = 0.0
+    worst_abs = dict.fromkeys(db.VARIANTS, 0.0)
     for name, batch, side, c_in, c_final in LAYER_CASES:
         state, ops = random_layer(gen, batch, side, c_in, c_final, dev)
-        got = db.dense_layer(state.clone(), c_in, ops)
         want = db.dense_layer_reference(state.clone(), c_in, ops)
-        torch.cuda.synchronize()
-        part_g = got[..., c_in:c_in + 32].float()
         part_w = want[..., c_in:c_in + 32].float()
-        abs_err = (part_g - part_w).abs().max().item()
-        rel_err = abs_err / part_w.abs().max().item()
-        untouched = torch.equal(torch.cat([got[..., :c_in], got[..., c_in + 32:]], -1),
-                                torch.cat([state[..., :c_in], state[..., c_in + 32:]], -1))
-        ok = bool(torch.isfinite(part_g).all()) and rel_err <= KERNEL_TOL and untouched
+        chosen = db.dense_layer_variant(batch, side, side, c_in)
+        row, ok = {}, True
+        for variant in db.VARIANTS:
+            got = db.dense_layer(state.clone(), c_in, ops, variant)
+            torch.cuda.synchronize()
+            part_g = got[..., c_in:c_in + 32].float()
+            abs_err = (part_g - part_w).abs().max().item()
+            untouched = torch.equal(
+                torch.cat([got[..., :c_in], got[..., c_in + 32:]], -1),
+                torch.cat([state[..., :c_in], state[..., c_in + 32:]], -1))
+            v_ok = (bool(torch.isfinite(part_g).all()) and untouched
+                    and abs_err / part_w.abs().max().item() <= KERNEL_TOL)
+            ok = ok and v_ok
+            worst_abs[variant] = max(worst_abs[variant], abs_err)
+            row[f"{variant}_max_abs_err"] = abs_err
+            row[f"{variant}_rel_err"] = abs_err / part_w.abs().max().item()
+            row[f"{variant}_untouched"] = untouched
+            row[f"{variant}_device_ms"] = kernel_device(
+                lambda v=variant: db.dense_layer(state, c_in, ops, v),
+                DENSE_KERNELS[variant])[0]
         ms = time_ms(lambda: db.dense_layer(state, c_in, ops))
-        device_ms, _ = kernel_device(lambda: db.dense_layer(state, c_in, ops),
-                                     "dense_layer_kernel")
         plain_ms = time_ms(lambda: db.dense_layer_reference(state, c_in, ops), reps=3)
-        lib_ms = time_ms(library_convs(state, c_in, ops))
+        lib = library_convs(state, c_in, ops)
         b_ms, b_by = bound(*layer_work(batch, side, c_in))
+        smem, resident = db.persistent_smem_bytes(c_in)
         log("kernel", case=name, shape=[batch, side, side, c_final], c_in=c_in,
-            max_abs_err=abs_err, rel_err=rel_err, tol=KERNEL_TOL,
-            other_channels_untouched=untouched, ms=ms, device_ms=device_ms,
-            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-            ok=ok)
+            variant=chosen, tol=KERNEL_TOL, ms=ms,
+            device_ms=row[f"{chosen}_device_ms"], **row, plain_ms=plain_ms,
+            library_ms=time_ms(lib), library_device_ms=all_device_ms(lib),
+            bound_ms=b_ms, bound_by=b_by, persistent_smem_bytes=smem,
+            persistent_w1_resident=resident, ok=ok)
         if not ok:
-            raise SystemExit(f"dense_layer kernel disagrees with its plain "
+            raise SystemExit(f"a dense_layer kernel disagrees with its plain "
                              f"version at {name}")
-        worst_abs = max(worst_abs, abs_err)
     return worst_abs
 
 
 def stack_phase():
-    """The 58 dense layers of one DenseNet121-512 batch-8 forward, timed as
-    kernel, plain version and library convolutions."""
+    """The 58 dense layers of one DenseNet121-512 batch-8 forward, block by
+    block: the wrapper's choice, each kernel alone, the plain version and
+    the library convolutions. Returns the per-block rows and the totals."""
     from tennis_torch.ops import dense_block as db
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    blocks = []  # (state, [(c_in, ops)])
-    flops = nbytes = 0
+    blocks = []  # (state, [(c_in, ops)], flops, bytes)
     side, channels = DATA_SHAPE // 4, 64
     for num_layers in (6, 12, 24, 16):
         c_final = channels + 32 * num_layers
-        layers = []
+        layers, flops, nbytes = [], 0, 0
         for j in range(num_layers):
             state, ops = random_layer(gen, BATCH, side, channels + 32 * j,
                                       c_final, dev)
             layers.append((channels + 32 * j, ops))
             f, b = layer_work(BATCH, side, channels + 32 * j)
             flops, nbytes = flops + f, nbytes + b
-        blocks.append((state, layers))
+        blocks.append((state, layers, flops, nbytes))
         channels, side = c_final // 2, side // 2
 
-    def run(fn):
+    def run(fn, which, **kw):
         def go():
-            for state, layers in blocks:
+            for state, layers, _, _ in which:
                 for c_in, ops in layers:
-                    fn(state, c_in, ops)
+                    fn(state, c_in, ops, **kw)
         return go
 
-    lib = [library_convs(state, c_in, ops)
-           for state, layers in blocks for c_in, ops in layers]
-    ms = time_ms(run(db.dense_layer), reps=5)
-    plain_ms = time_ms(run(db.dense_layer_reference), reps=1)
-    library_ms = time_ms(lambda: [f() for f in lib], reps=5)
+    rows = []
+    for i, blk in enumerate(blocks):
+        state, layers, flops, nbytes = blk
+        side = state.shape[1]
+        lib = [library_convs(state, c_in, ops) for c_in, ops in layers]
+
+        def lib_go(lib=lib):
+            for f in lib:
+                f()
+
+        b_ms, b_by = bound(flops, nbytes)
+        row = {"block": i, "side": side, "layers": len(layers),
+               "variant": db.dense_layer_variant(BATCH, side, side, layers[0][0]),
+               "ms": time_ms(run(db.dense_layer, [blk]), reps=5),
+               "device_ms": dense_device_ms(run(db.dense_layer, [blk]))}
+        for variant in db.VARIANTS:
+            row[f"{variant}_device_ms"] = dense_device_ms(
+                run(db.dense_layer, [blk], variant=variant))
+        row.update(plain_ms=time_ms(run(db.dense_layer_reference, [blk]), reps=1),
+                   library_ms=time_ms(lib_go, reps=5),
+                   library_device_ms=all_device_ms(lib_go), bound_ms=b_ms,
+                   bound_by=b_by, flops=flops, bytes=nbytes)
+        log("stack_block", **row)
+        rows.append(row)
+
+    flops = sum(r["flops"] for r in rows)
+    nbytes = sum(r["bytes"] for r in rows)
+    ms = time_ms(run(db.dense_layer, blocks), reps=5)
+    plain_ms = time_ms(run(db.dense_layer_reference, blocks), reps=1)
+    library_ms = sum(r["library_ms"] for r in rows)
     # the kernels' own time, without the host gaps between launches
-    device_ms, launches = kernel_device(run(db.dense_layer),
-                                        "dense_layer_kernel")
+    device_ms, launches = kernel_device(run(db.dense_layer, blocks),
+                                        *DENSE_KERNELS.values())
+    tile_device_ms = dense_device_ms(run(db.dense_layer, blocks, variant="tile"))
     b_ms, b_by = bound(flops, nbytes)
-    n_layers = sum(len(layers) for _, layers in blocks)
+    n_layers = sum(len(layers) for _, layers, _, _ in blocks)
     log("stack", layers=n_layers, batch=BATCH, data_shape=DATA_SHAPE,
         gflop=flops / 1e9, gbytes=nbytes / 1e9, ms=ms, device_ms=device_ms,
-        profiled_launches=launches, plain_ms=plain_ms, library_ms=library_ms,
+        tile_only_device_ms=tile_device_ms, profiled_launches=launches,
+        plain_ms=plain_ms, library_ms=library_ms,
+        library_device_ms=sum(r["library_device_ms"] for r in rows),
         bound_ms=b_ms, bound_by=b_by, device_tflops=flops / device_ms / 1e9,
-        roofline_share=b_ms / device_ms)
-    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+        roofline_share=b_ms / device_ms,
+        choice_beats_tile_only=device_ms < tile_device_ms)
+    return rows
 
 
 def random_flax_tree(tree, rng):
@@ -346,6 +408,7 @@ def main_path_phase(dev):
 
         batches0 = batcher.batches
         db.dense_layer.launches = 0
+        db.dense_layer.variant_launches = dict.fromkeys(db.VARIANTS, 0)
         start = time.perf_counter()
         threads = [threading.Thread(target=request, args=(i,))
                    for i in range(N_REQUESTS)]
@@ -355,6 +418,7 @@ def main_path_phase(dev):
             t.join(timeout=600)
         wall = time.perf_counter() - start
         launches = db.dense_layer.launches
+        by_variant = dict(db.dense_layer.variant_launches)
         batches = batcher.batches - batches0
         if any(t.is_alive() for t in threads) or any(r is None for r in results):
             raise SystemExit("not every request was answered")
@@ -374,6 +438,8 @@ def main_path_phase(dev):
     if launches != 58 * batches or batches < 1:
         raise SystemExit(f"{launches} dense-layer launches for {batches} "
                          f"batches, expected 58 per batch")
+    if not all(by_variant.values()):
+        raise SystemExit(f"a dense-layer kernel was not launched: {by_variant}")
     if health["status"] != "ok" or health["requests"] < N_REQUESTS:
         raise SystemExit(f"healthz: {health}")
 
@@ -391,7 +457,7 @@ def main_path_phase(dev):
     log("breakdown", batch=BATCH, latency_ms=latency_ms, device_busy_ms=busy_ms,
         idle_share=1 - busy_ms / latency_ms,
         dense_layer_ms=sum(v[0] for k, v in kernels.items()
-                           if "dense_layer_kernel" in k),
+                           if any(n in k for n in DENSE_KERNELS.values())),
         top=[[k[:60], v[0], v[1]] for k, v in top])
 
     # logits: kernel path vs the plain-version forward on the same frames
@@ -406,14 +472,15 @@ def main_path_phase(dev):
     served = np.allclose(torch.softmax(got, -1).cpu().numpy(), probs[:BATCH],
                          atol=1e-2)
     log("main_path", requests=N_REQUESTS, batches=batches, launches=launches,
-        launches_per_batch=launches / batches, wall_s=wall,
+        launches_per_batch=launches / batches, launches_by_variant=by_variant,
+        wall_s=wall,
         batch8_latency_ms=latency_ms, frames_per_s=BATCH / latency_ms * 1e3,
         healthz=health, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         logits_rel_err=rel, logit_tol=LOGIT_TOL, top1_agrees=top1,
         served_probs_match_forward=served)
     if not (rel <= LOGIT_TOL and top1 and served):
         raise SystemExit("kernel forward disagrees with the plain-version forward")
-    return launches
+    return by_variant
 
 
 def cluster_round_trip_us(writers: int):
@@ -749,6 +816,27 @@ def build_phase():
                    if "registers" in l or "spill" in l or "smem" in l])
 
 
+def dense_entry(name, variant, stack_rows, launches, max_abs):
+    """The kernels-line entry of one dense-layer variant, over the blocks of
+    the 58-layer stack that the wrapper sends to it."""
+    rows = [r for r in stack_rows if r["variant"] == variant]
+    b_ms, b_by = bound(sum(r["flops"] for r in rows),
+                       sum(r["bytes"] for r in rows))
+    return {
+        "name": name, "route": "cuda", "source": f"tennis_torch/csrc/{name}.cu",
+        "replaces": "tennis_tpu/ops/pallas/dense_block.py:92",
+        "launches": launches[variant], "max_abs_err": max_abs[variant],
+        "ms": sum(r["ms"] for r in rows),
+        "device_ms": sum(r["device_ms"] for r in rows),
+        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": sum(r["library_ms"] for r in rows),
+        "work": f"blocks {[r['block'] for r in rows]} "
+                f"({sum(r['layers'] for r in rows)} dense layers) of "
+                f"DenseNet121 at {DATA_SHAPE}^2, batch {BATCH}",
+    }
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "tennis_torch")):
         print("chip_smoke: tennis_torch/ is not beside this script",
@@ -768,23 +856,16 @@ def main() -> int:
 
     build_phase()
     max_abs = kernel_phase()
-    stack = stack_phase()
+    stack_rows = stack_phase()
     launches = main_path_phase(torch.device("cuda"))
     gru_abs, gru_rows = gru_phase(torch.device("cuda"))
     gru_launches = caption_phase(torch.device("cuda"))
     serve_row = gru_rows["serve_0102"]
 
-    print(json.dumps({"kernels": [{
-        "name": "dense_layer", "route": "cuda",
-        "source": "tennis_torch/csrc/dense_layer.cu",
-        "replaces": "tennis_tpu/ops/pallas/dense_block.py:92",
-        "launches": launches, "max_abs_err": max_abs,
-        "ms": stack["ms"], "device_ms": stack["device_ms"],
-        "plain_ms": stack["plain_ms"],
-        "bound_ms": stack["bound_ms"], "bound_by": stack["bound_by"],
-        "library_ms": stack["library_ms"],
-        "work": f"58 dense layers of DenseNet121 at {DATA_SHAPE}^2, batch {BATCH}",
-    }, {
+    print(json.dumps({"kernels": [
+        dense_entry("dense_layer", "tile", stack_rows, launches, max_abs),
+        dense_entry("dense_layer_persistent", "persistent", stack_rows,
+                    launches, max_abs), {
         "name": "gru_recurrence", "route": "cuda",
         "source": "tennis_torch/csrc/gru_recurrence.cu",
         "replaces": "tennis_tpu/ops/pallas/gru.py:41",

@@ -6,9 +6,14 @@ Counterpart of ``tennis_tpu/ops/pallas/dense_block.py``. One launch of
 unpadded NHWC block-state buffer ``(B, H, W, C_block_final)`` and writes the
 layer's growth channels in place, so the concatenated state is never built.
 
-Beside the kernel sits its plain PyTorch version, ``dense_layer_reference``.
+The kernel has two variants. ``csrc/dense_layer_persistent.cu`` runs one
+CTA per SM with the conv weights resident in shared memory and takes the
+large maps; ``csrc/dense_layer.cu`` runs one CTA per 8x8 tile and takes the
+small ones. ``dense_layer_variant`` chooses by shape.
+
+Beside the kernels sits their plain PyTorch version, ``dense_layer_reference``.
 ``dense_layer`` takes the plain version only for a tensor on the CPU; for a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches one of the two kernels or raises.
 
 ``densenet_features`` drives the whole feature extractor: stem, transitions
 and the final BN/pool are plain torch ops, every dense layer goes through
@@ -110,42 +115,106 @@ def _check_kernel_args(state, c_in, ops):
             raise ValueError("dense_layer kernel takes 16-byte aligned tensors")
 
 
-def _launcher():
+# The persistent kernel's shared memory, mirrored from
+# csrc/dense_layer_persistent.cu (bf16 elements unless stated): w2 resident,
+# the bottleneck tile, a ring of STAGES x-chunk stages (plus a w1 chunk each
+# when w1 streams), w1 resident where it fits, and the BN1 vectors (f32).
+SMEM_LIMIT = 232_448  # H100: the most a block can opt in to
+STAGES = 3
+CHUNK = 64  # input channels per ring stage
+_W2_ELEMS = 9 * GROWTH * (BOTTLENECK + 8)
+_BNECK_ELEMS = 100 * (BOTTLENECK + 8)
+_X_STAGE_ELEMS = 112 * (CHUNK + 8)
+_W1_STAGE_ELEMS = BOTTLENECK * (CHUNK + 8)
+# maps below this side go to the tile kernel; the persistent kernel was built
+# and measured for the 128^2 and 64^2 maps of DenseNet at 512^2
+PERSISTENT_MIN_SIDE = 64
+
+
+def persistent_smem_bytes(c_in: int) -> tuple[int, bool]:
+    """(dynamic shared-memory bytes, w1 resident) of the persistent kernel at
+    ``c_in``: w1 is resident when that fits in ``SMEM_LIMIT``, else it
+    streams beside x. The launcher refuses a launch above the limit."""
+    def total(resident):
+        stage = _X_STAGE_ELEMS + (0 if resident else _W1_STAGE_ELEMS)
+        w1 = BOTTLENECK * (c_in + 8) if resident else 0
+        return 2 * (_W2_ELEMS + _BNECK_ELEMS + STAGES * stage + w1) + 8 * c_in
+
+    resident = total(True) <= SMEM_LIMIT
+    return total(resident), resident
+
+
+def dense_layer_variant(batch: int, height: int, width: int, c_in: int) -> str:
+    """Which kernel ``dense_layer`` launches for a (batch, height, width)
+    state at ``c_in``: ``"persistent"`` for the large maps (every 128^2 and
+    64^2 layer of DenseNet at 512^2), ``"tile"`` for the small ones and for
+    a ``c_in`` whose persistent budget exceeds ``SMEM_LIMIT``."""
+    del batch  # the choice is per map side
+    if (min(height, width) >= PERSISTENT_MIN_SIDE
+            and persistent_smem_bytes(c_in)[0] <= SMEM_LIMIT):
+        return "persistent"
+    return "tile"
+
+
+VARIANTS = ("persistent", "tile")
+
+
+def _launcher(variant):
     from tennis_torch.ops._build import load_library
 
-    fn = load_library("dense_layer").dense_layer_launch
+    if variant == "tile":
+        fn, n_int = load_library("dense_layer").dense_layer_launch, 7
+    else:
+        fn = load_library("dense_layer_persistent").dense_layer_persistent_launch
+        n_int = 8  # ... bottleneck, growth, max_ctas
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * n_int + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def dense_layer(state: torch.Tensor, c_in: int,
-                ops: LayerOperands) -> torch.Tensor:
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def dense_layer(state: torch.Tensor, c_in: int, ops: LayerOperands,
+                variant: str | None = None) -> torch.Tensor:
     """One dense layer in place: reads channels ``[0, c_in)`` of the NHWC
     block state, writes its growth part to ``[c_in, c_in + G)``; returns
-    ``state``. CUDA tensors go through the kernel; CPU tensors through
-    :func:`dense_layer_reference`."""
+    ``state``. CUDA tensors go through the kernel that ``variant`` names
+    (``"persistent"`` or ``"tile"``; by default
+    :func:`dense_layer_variant`'s choice); CPU tensors through
+    :func:`dense_layer_reference`, whatever the variant."""
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError(f"dense_layer variant must be one of {VARIANTS}, "
+                         f"not {variant!r}")
     if state.device.type == "cpu":
         return dense_layer_reference(state, c_in, ops)
     if state.device.type != "cuda":
         raise ValueError(f"dense_layer runs on cuda or cpu, not {state.device}")
     _check_kernel_args(state, c_in, ops)
     B, H, W, C = state.shape
+    variant = variant or dense_layer_variant(B, H, W, c_in)
+    args = [state.data_ptr(), ops.inv1.data_ptr(), ops.sh1.data_ptr(),
+            ops.w1.data_ptr(), ops.inv2.data_ptr(), ops.sh2.data_ptr(),
+            ops.w2.data_ptr(), B, H, W, C, c_in, BOTTLENECK, GROWTH]
+    if variant == "persistent":
+        args.append(_sm_count(state.device))
     stream = torch.cuda.current_stream(state.device).cuda_stream
     with torch.cuda.device(state.device):
-        err = _launcher()(
-            state.data_ptr(), ops.inv1.data_ptr(), ops.sh1.data_ptr(),
-            ops.w1.data_ptr(), ops.inv2.data_ptr(), ops.sh2.data_ptr(),
-            ops.w2.data_ptr(), B, H, W, C, c_in, BOTTLENECK, GROWTH, stream)
+        err = _launcher(variant)(*args, stream)
     if err:
-        raise RuntimeError(f"dense_layer kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"dense_layer {variant} kernel launch failed: "
+                           f"CUDA error {err}")
     dense_layer.launches += 1
+    dense_layer.variant_launches[variant] += 1
     return state
 
 
-dense_layer.launches = 0  # kernel launches, so a run can show it took the kernel
+# kernel launches, so a run can show it took the kernels, and which one
+dense_layer.launches = 0
+dense_layer.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 def _bn_relu(x, inv_shift, dtype):

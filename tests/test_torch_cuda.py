@@ -1,6 +1,7 @@
-"""The port on a CUDA card: the dense-layer kernel against its plain version
-at small and ragged shapes, the wrapper's refusals, and a DenseNet forward
-through the kernel. Marked ``cuda``; each test skips without a card. On a
+"""The port on a CUDA card: both dense-layer kernels (tile and persistent)
+against their plain version at small and ragged shapes, the wrapper's
+refusals and choice of kernel, DenseNet forwards through the kernels, and
+the GRU kernel. Marked ``cuda``; each test skips without a card. On a
 machine with one, run them without the JAX conftest:
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q``."""
 import pytest
@@ -64,6 +65,83 @@ def test_kernel_refuses_what_it_does_not_take(dev):
         db.dense_layer(state, 64, ops._replace(w1=ops.w1.cpu()))
     with pytest.raises(ValueError):
         db.dense_layer(state, 48, ops)
+
+
+@pytest.mark.parametrize("batch,h,w,c_in,c_final", [
+    (2, 24, 17, 224, 256),   # ragged, w1 resident
+    (1, 9, 130, 64, 96),     # ragged, one pixel past two rows of tiles
+    (2, 16, 16, 480, 512),   # w1 streamed, a ragged last 64-channel chunk
+    (1, 20, 12, 320, 352),   # the first c_in with w1 streamed
+    (1, 16, 16, 288, 320),   # the last c_in with w1 resident; 4 tiles < SMs
+    (3, 13, 9, 32, 64),      # one chunk of 32 channels
+    (2, 128, 128, 64, 96),   # 512 tiles: more than twice the SMs
+    (3, 64, 64, 128, 160),   # 192 tiles: some CTAs take one tile, some two
+])
+def test_persistent_kernel_matches_plain(dev, batch, h, w, c_in, c_final):
+    state, ops = _layer(dev, batch, h, w, c_in, c_final, seed=c_in)
+    before = dict(db.dense_layer.variant_launches)
+    got = db.dense_layer(state.clone(), c_in, ops, "persistent")
+    want = db.dense_layer_reference(state.clone(), c_in, ops)
+    torch.cuda.synchronize()
+    assert db.dense_layer.variant_launches["persistent"] == before["persistent"] + 1
+    assert db.dense_layer.variant_launches["tile"] == before["tile"]
+    part_g = got[..., c_in:c_in + 32].float()
+    part_w = want[..., c_in:c_in + 32].float()
+    err = (part_g - part_w).abs().max() / part_w.abs().max()
+    assert err <= REL_TOL, err.item()
+    torch.testing.assert_close(got[..., :c_in], state[..., :c_in], rtol=0, atol=0)
+    torch.testing.assert_close(got[..., c_in + 32:], state[..., c_in + 32:],
+                               rtol=0, atol=0)
+
+
+def test_persistent_budget_mirror_and_refusal(dev):
+    """The launcher's budget equals the Python mirror; past it the launch
+    raises and nothing falls back to the tile kernel."""
+    import ctypes
+
+    from tennis_torch.ops._build import load_library
+
+    fn = load_library("dense_layer_persistent").dense_layer_persistent_smem
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_longlong
+    resident = ctypes.c_int()
+    for c_in in (32, 224, 288, 320, 480, 2880, 2912):
+        got = (fn(c_in, ctypes.byref(resident)), bool(resident.value))
+        assert got == db.persistent_smem_bytes(c_in), c_in
+    c_in = 2912
+    state, ops = _layer(dev, 1, 3, 3, c_in, c_in + 32)
+    before = dict(db.dense_layer.variant_launches)
+    with pytest.raises(RuntimeError, match="persistent"):
+        db.dense_layer(state, c_in, ops, "persistent")
+    assert db.dense_layer.variant_launches == before
+
+
+def test_wrapper_dispatches_by_map(dev):
+    for side, variant in ((128, "persistent"), (16, "tile")):
+        state, ops = _layer(dev, 1, side, side, 64, 96)
+        assert db.dense_layer_variant(1, side, side, 64) == variant
+        before = dict(db.dense_layer.variant_launches)
+        db.dense_layer(state, 64, ops)
+        assert db.dense_layer.variant_launches[variant] == before[variant] + 1
+
+
+def test_densenet_forward_takes_both_kernels(dev):
+    """At 256^2 the first block's 64^2 map goes to the persistent kernel and
+    the second block's 32^2 map to the tile kernel; the forward agrees with
+    the plain-version forward on the same card."""
+    gen = torch.Generator().manual_seed(0)
+    model = DenseNet(DenseNetSpec((2, 3), 32, 64), generator=gen).to(dev).eval()
+    model.fold()
+    x = torch.randn(1, 256, 256, 3, generator=gen).to(dev)
+    with torch.inference_mode():
+        before = dict(db.dense_layer.variant_launches)
+        got = model(x).float()
+        assert db.dense_layer.variant_launches == {
+            "persistent": before["persistent"] + 2, "tile": before["tile"] + 3}
+        want = db.densenet_features(model.spec, model.operands(), x, model.dtype,
+                                    layer=db.dense_layer_reference).float()
+    err = (got - want).abs().max() / want.abs().max()
+    assert err <= 3e-2, err.item()
 
 
 def test_densenet_forward_through_kernel(dev):
