@@ -8,22 +8,29 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
 1. card: name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. build: ``nvcc`` of every kernel, all started together, with each one's
    time and ptxas report;
-3. kernel vs plain version: both dense-layer kernels (the persistent one
-   for the large maps, the tile one) against ``dense_layer_reference`` in
-   bf16 at the first and last layer shape of each DenseNet121-512 block
-   (batch 8), two more 64^2 shapes (the last c_in with w1 resident in the
-   persistent kernel and the first with w1 streamed), a ragged 7x7 map and
-   batch 1; device times of both kernels, which one the wrapper chooses,
-   times of the plain version and of the two cuDNN convolutions of the layer
-   (the library yardstick); then the whole 58-layer stack of one batch-8
-   forward, block by block: the wrapper's choice, each kernel alone, the
-   plain version and cuDNN;
+3. kernel vs plain version: the three dense-layer kernels (persistent for
+   the large maps, cluster split-K for the small ones, tile) against
+   ``dense_layer_reference`` in bf16 at the first and last layer shape of
+   each DenseNet121-512 block (batch 8), two more 64^2 shapes (the last c_in
+   with w1 resident in the persistent kernel and the first with w1
+   streamed), ragged 7x7 and 14x14 maps, batch 1, DenseNet201's c_in 1888
+   and a c_in whose units do not divide by the cluster size; the cluster
+   kernel at every cluster size; device times of each, which one the wrapper
+   chooses, times of the plain version and of the two cuDNN convolutions of
+   the layer (the library yardstick). Then ``[route]``: every small-map
+   layer shape of DenseNet121/169/201 at 512^2 (c_in in steps of 64) and
+   the ragged maps, at batch 1 and 8, each kernel and cluster size timed by
+   device time in three rounds of alternating order, the fastest beside the
+   wrapper's route. Then the whole 58-layer stack of one batch-8 forward,
+   every layer through every kernel against the plain version, and block by
+   block: the wrapper's choice, each kernel alone, the plain version and
+   cuDNN;
 4. classifier path: ``FrameModel(DenseNet121)`` at 512^2 with seeded random
    weights in flax naming, loaded through ``bridge.load_flax``, served by
    ``serve.make_service``: 16 concurrent frames through its ``Batcher``,
    ``GET /healthz`` over HTTP, probabilities checked, 58 kernel launches per
-   batch (both kernels launched), batch-8 logits against the plain-version
-   forward;
+   batch split between the kernels as the wrapper's route names them,
+   batch-8 logits against the plain-version forward;
 5. GRU kernel vs plain version: ``gru_recurrence`` against
    ``gru_recurrence_reference`` in f32 at the 0102 serving shape (T 128,
    batch 4, H 256), the evaluate batch (32), the default width (H 128) and
@@ -74,10 +81,15 @@ DATA_SHAPE = 512
 BATCH = 8
 N_REQUESTS = 16
 SEED = 0
-KERNELS = ["dense_layer", "dense_layer_persistent", "gru_recurrence"]
-# profiler name of each dense-layer kernel variant (neither name holds the other)
+KERNELS = ["dense_layer", "dense_layer_persistent", "dense_layer_cluster",
+           "gru_recurrence"]
+# profiler name of each dense-layer kernel variant (no name holds another);
+# the cluster kernel's name also carries its cluster size, <2>, <4> or <8>
 DENSE_KERNELS = {"persistent": "dense_layer_persistent_kernel",
-                 "tile": "dense_layer_kernel"}
+                 "tile": "dense_layer_kernel",
+                 "cluster": "dense_layer_cluster_kernel"}
+ROUTE_ROUNDS = 3
+ROUTE_REPS = 3
 
 # the 0102 captioner (README, train_gnmt flags): 0006 features, 2 GRU layers
 # of 256 (the first bidirectional), embeddings of 100, 4 specials + 250 words
@@ -100,14 +112,17 @@ GRU_CASES = [
 
 # (name, batch, side, c_in, c_final): first and last layer of each
 # DenseNet121-512 block at batch 8, the last 64^2 layer with w1 resident in
-# the persistent kernel and the first with w1 streamed, a ragged map, batch 1
+# the persistent kernel and the first with w1 streamed, ragged maps (DenseNet
+# at 224^2), batch 1, DenseNet201's last c_in, 9 units over up to 8 CTAs
 LAYER_CASES = [
     ("block0_first", 8, 128, 64, 256), ("block0_last", 8, 128, 224, 256),
     ("block1_first", 8, 64, 128, 512), ("block1_c288", 8, 64, 288, 512),
     ("block1_c320", 8, 64, 320, 512), ("block1_last", 8, 64, 480, 512),
     ("block2_first", 8, 32, 256, 1024), ("block2_last", 8, 32, 992, 1024),
     ("block3_first", 8, 16, 512, 1024), ("block3_last", 8, 16, 992, 1024),
-    ("ragged_7x7", 8, 7, 512, 1024), ("batch1", 1, 128, 64, 256),
+    ("ragged_7x7", 8, 7, 512, 1024), ("ragged_14x14", 8, 14, 256, 512),
+    ("batch1", 1, 128, 64, 256), ("batch1_16", 1, 16, 512, 1024),
+    ("d201_c1888", 8, 16, 1888, 1920), ("c288", 1, 16, 288, 320),
 ]
 
 
@@ -161,22 +176,36 @@ def device_profile(fn):
     return by_name
 
 
-def kernel_device(fn, *names):
+def traced_kernels(fn, *names, launches=None):
+    """{name: [device ms, launches]} of the kernels whose name holds one of
+    ``names`` (any kernel without names) over one call of ``fn``. A trace
+    that recorded none of them, or not ``launches`` of them, is taken again,
+    up to three times: the tracer drops a session's records now and then."""
+    for _ in range(3):
+        hits = {k: v for k, v in device_profile(fn).items()
+                if not names or any(n in k for n in names)}
+        if hits and launches in (None, sum(v[1] for v in hits.values())):
+            return hits
+    raise SystemExit(f"the profiler recorded {len(hits)} kernels {names or ''} "
+                     f"where {launches} launches were expected, 3 times")
+
+
+def kernel_device(fn, *names, launches=None):
     """(device ms, launches) of the kernels whose name holds one of
     ``names`` over one call of ``fn``."""
-    hits = [v for k, v in device_profile(fn).items()
-            if any(n in k for n in names)]
+    hits = traced_kernels(fn, *names, launches=launches).values()
     return sum(v[0] for v in hits), sum(v[1] for v in hits)
 
 
-def dense_device_ms(fn):
-    """Device ms of both dense-layer kernels over one call of ``fn``."""
-    return kernel_device(fn, *DENSE_KERNELS.values())[0]
+def dense_device_ms(fn, launches):
+    """Device ms of the dense-layer kernels over one call of ``fn``, which
+    launches them ``launches`` times."""
+    return kernel_device(fn, *DENSE_KERNELS.values(), launches=launches)[0]
 
 
 def all_device_ms(fn):
     """Device ms of every kernel over one call of ``fn``."""
-    return sum(v[0] for v in device_profile(fn).values())
+    return kernel_device(fn)[0]
 
 
 def layer_work(batch, side, c_in, f=128, g=32):
@@ -221,8 +250,23 @@ def library_convs(state, c_in, ops):
     return lambda: F.conv2d(F.conv2d(x, w1), w2, padding=1)
 
 
+def check_layer(state, got, want, c_in):
+    """(max |kernel - plain| over the growth channels, that over max |plain|,
+    every other channel untouched, ok)."""
+    part_g = got[..., c_in:c_in + 32].float()
+    part_w = want[..., c_in:c_in + 32].float()
+    abs_err = (part_g - part_w).abs().max().item()
+    rel = abs_err / part_w.abs().max().item()
+    untouched = torch.equal(
+        torch.cat([got[..., :c_in], got[..., c_in + 32:]], -1),
+        torch.cat([state[..., :c_in], state[..., c_in + 32:]], -1))
+    ok = bool(torch.isfinite(part_g).all()) and untouched and rel <= KERNEL_TOL
+    return abs_err, rel, untouched, ok
+
+
 def kernel_phase():
-    """Both dense-layer kernels against the plain version at LAYER_CASES;
+    """The three dense-layer kernels against the plain version at
+    LAYER_CASES, the cluster kernel at every cluster size it takes there;
     returns the worst max |kernel - plain| of each variant."""
     from tennis_torch.ops import dense_block as db
 
@@ -232,48 +276,137 @@ def kernel_phase():
     for name, batch, side, c_in, c_final in LAYER_CASES:
         state, ops = random_layer(gen, batch, side, c_in, c_final, dev)
         want = db.dense_layer_reference(state.clone(), c_in, ops)
-        part_w = want[..., c_in:c_in + 32].float()
-        chosen = db.dense_layer_variant(batch, side, side, c_in)
+        chosen, routed_size = db.dense_layer_route(batch, side, side, c_in)
+        size = db.dense_layer_cluster_size(batch, side, side, c_in)
+        runs = [(v, None) for v in db.VARIANTS if v != "cluster"]
+        runs += [("cluster", s) for s in db.CLUSTER_SIZES]
         row, ok = {}, True
-        for variant in db.VARIANTS:
-            got = db.dense_layer(state.clone(), c_in, ops, variant)
+        for variant, s in runs:
+            key = variant if s is None else f"cluster{s}"
+            got = db.dense_layer(state.clone(), c_in, ops, variant, s)
             torch.cuda.synchronize()
-            part_g = got[..., c_in:c_in + 32].float()
-            abs_err = (part_g - part_w).abs().max().item()
-            untouched = torch.equal(
-                torch.cat([got[..., :c_in], got[..., c_in + 32:]], -1),
-                torch.cat([state[..., :c_in], state[..., c_in + 32:]], -1))
-            v_ok = (bool(torch.isfinite(part_g).all()) and untouched
-                    and abs_err / part_w.abs().max().item() <= KERNEL_TOL)
+            abs_err, rel, untouched, v_ok = check_layer(state, got, want, c_in)
             ok = ok and v_ok
             worst_abs[variant] = max(worst_abs[variant], abs_err)
-            row[f"{variant}_max_abs_err"] = abs_err
-            row[f"{variant}_rel_err"] = abs_err / part_w.abs().max().item()
-            row[f"{variant}_untouched"] = untouched
-            row[f"{variant}_device_ms"] = kernel_device(
-                lambda v=variant: db.dense_layer(state, c_in, ops, v),
-                DENSE_KERNELS[variant])[0]
+            row[f"{key}_max_abs_err"] = abs_err
+            row[f"{key}_rel_err"] = rel
+            row[f"{key}_untouched"] = untouched
+            row[f"{key}_device_ms"] = kernel_device(
+                lambda v=variant, s=s: db.dense_layer(state, c_in, ops, v, s),
+                DENSE_KERNELS[variant], launches=1)[0]
         ms = time_ms(lambda: db.dense_layer(state, c_in, ops))
         plain_ms = time_ms(lambda: db.dense_layer_reference(state, c_in, ops), reps=3)
         lib = library_convs(state, c_in, ops)
         b_ms, b_by = bound(*layer_work(batch, side, c_in))
         smem, resident = db.persistent_smem_bytes(c_in)
+        chosen_key = chosen if routed_size is None else f"cluster{routed_size}"
         log("kernel", case=name, shape=[batch, side, side, c_final], c_in=c_in,
-            variant=chosen, tol=KERNEL_TOL, ms=ms,
-            device_ms=row[f"{chosen}_device_ms"], **row, plain_ms=plain_ms,
+            variant=chosen, cluster_size=size, tol=KERNEL_TOL, ms=ms,
+            device_ms=row[f"{chosen_key}_device_ms"], **row, plain_ms=plain_ms,
             library_ms=time_ms(lib), library_device_ms=all_device_ms(lib),
             bound_ms=b_ms, bound_by=b_by, persistent_smem_bytes=smem,
-            persistent_w1_resident=resident, ok=ok)
+            persistent_w1_resident=resident,
+            cluster_smem_bytes={s: db.cluster_smem_bytes(s)
+                                for s in db.CLUSTER_SIZES}, ok=ok)
         if not ok:
             raise SystemExit(f"a dense_layer kernel disagrees with its plain "
                              f"version at {name}")
     return worst_abs
 
 
+def route_shapes():
+    """(batch, side, c_in) of every small-map layer of DenseNet121/169/201
+    at 512^2 (c_in in steps of 64, and each block's last c_in), and of the
+    ragged 14x14 and 7x7 maps of DenseNet121 at 224^2, at batch 1 and 8."""
+    # side: the blocks' first c_in in steps of 64 to the last of DenseNet201,
+    # and the last c_in of DenseNet121, 169 and 201
+    c_ins = {32: sorted({*range(256, 1761, 64), 992, 1248, 1760}),
+             16: sorted({*range(512, 1889, 64), 992, 1632, 1888}),
+             14: [256, 608, 992], 7: [512, 736, 992]}
+    return [(batch, side, c) for batch in (8, 1) for side, cs in c_ins.items()
+            for c in cs]
+
+
+def route_phase():
+    """Device time of every kernel and cluster size at every route_shapes()
+    shape, ROUTE_ROUNDS rounds of ROUTE_REPS launches each, the order of the
+    kernels rotated from round to round; one profiler session per round,
+    whose kernel records are matched to the launches in order. Logs one
+    ``[route]`` line per shape; returns how often the route is the fastest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tennis_torch.ops import dense_block as db
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    cases = []
+    for batch, side, c_in in route_shapes():
+        state, ops = random_layer(gen, batch, side, c_in, c_in + 32, dev)
+        runs = [(v, None) for v in ("tile", "persistent")]
+        runs += [("cluster", s) for s in db.CLUSTER_SIZES]
+        cases.append((batch, side, c_in, state, ops, runs))
+
+    def launch_all(rnd):
+        """Every case's kernels, rotated by the round; [(case, key)]."""
+        order = []
+        for i, (_, _, c_in, state, ops, runs) in enumerate(cases):
+            k = rnd % len(runs)
+            for variant, s in runs[k:] + runs[:k]:
+                for _ in range(ROUTE_REPS):
+                    db.dense_layer(state, c_in, ops, variant, s)
+                    order.append((i, variant if s is None else f"cluster{s}"))
+        return order
+
+    def traced_round(rnd):
+        """[(case, key, device ms)] of one round's launches, in order; a
+        trace that dropped records is taken again, up to three times."""
+        for _ in range(3):
+            launch_all(rnd)  # warm: every kernel built, its cluster size checked
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                order = launch_all(rnd)
+                torch.cuda.synchronize()
+            records = sorted((e for e in prof.events()
+                              if e.device_type == DeviceType.CUDA
+                              and "dense_layer" in e.name),
+                             key=lambda e: e.time_range.start)
+            if len(records) == len(order):
+                return [(i, key, e.time_range.elapsed_us() / 1e3)
+                        for (i, key), e in zip(order, records)]
+        raise SystemExit(f"route phase: {len(records)} kernel records for "
+                         f"{len(order)} launches, 3 times")
+
+    times = [{} for _ in cases]  # key -> [per-round mean ms]
+    for rnd in range(ROUTE_ROUNDS):
+        sums = {}
+        for i, key, ms in traced_round(rnd):
+            sums[i, key] = sums.get((i, key), 0.0) + ms
+        for (i, key), total in sums.items():
+            times[i].setdefault(key, []).append(total / ROUTE_REPS)
+    agree = 0
+    for (batch, side, c_in, _, _, _), t in zip(cases, times):
+        med = {k: statistics.median(v) for k, v in t.items()}
+        fastest = min(med, key=med.get)
+        variant, size = db.dense_layer_route(batch, side, side, c_in)
+        routed = variant if size is None else f"cluster{size}"
+        agree += routed == fastest
+        log("route", batch=batch, side=side, c_in=c_in, device_ms=med,
+            spread=[min(min(v) / med[k] for k, v in t.items()),
+                    max(max(v) / med[k] for k, v in t.items())],
+            fastest=fastest, routed=routed,
+            routed_over_fastest=med[routed] / med[fastest])
+    return agree, len(cases)
+
+
 def stack_phase():
-    """The 58 dense layers of one DenseNet121-512 batch-8 forward, block by
-    block: the wrapper's choice, each kernel alone, the plain version and
-    the library convolutions. Returns the per-block rows and the totals."""
+    """The 58 dense layers of one DenseNet121-512 batch-8 forward: every
+    layer through every kernel against the plain version, each layer's
+    routed kernel, plain version and library convolutions timed, and block
+    by block the wrapper's choice, each kernel alone, the plain version and
+    the library. Returns the per-block rows, the per-layer rows and the
+    device ms of each kernel over the routed stack."""
     from tennis_torch.ops import dense_block as db
 
     dev = torch.device("cuda")
@@ -299,26 +432,55 @@ def stack_phase():
                     fn(state, c_in, ops, **kw)
         return go
 
+    layer_rows, worst_rel = [], dict.fromkeys(db.VARIANTS, 0.0)
+    for i, (state, layers, _, _) in enumerate(blocks):
+        side = state.shape[1]
+        for c_in, ops in layers:
+            want = db.dense_layer_reference(state.clone(), c_in, ops)
+            for variant in db.VARIANTS:
+                got = db.dense_layer(state.clone(), c_in, ops, variant)
+                torch.cuda.synchronize()
+                _, rel, _, ok = check_layer(state, got, want, c_in)
+                worst_rel[variant] = max(worst_rel[variant], rel)
+                if not ok:
+                    raise SystemExit(f"the {variant} kernel disagrees with its "
+                                     f"plain version at block {i}, c_in {c_in}")
+            flops, nbytes = layer_work(BATCH, side, c_in)
+            layer_rows.append({
+                "block": i, "c_in": c_in, "flops": flops, "bytes": nbytes,
+                "variant": db.dense_layer_variant(BATCH, side, side, c_in),
+                "ms": time_ms(lambda: db.dense_layer(state, c_in, ops), rounds=3),
+                "plain_ms": time_ms(
+                    lambda: db.dense_layer_reference(state, c_in, ops),
+                    reps=1, rounds=3),
+                "library_ms": time_ms(library_convs(state, c_in, ops), rounds=3)})
+    log("stack_check", layers=len(layer_rows), tol=KERNEL_TOL,
+        worst_rel_err=worst_rel)
+
     rows = []
     for i, blk in enumerate(blocks):
         state, layers, flops, nbytes = blk
-        side = state.shape[1]
         lib = [library_convs(state, c_in, ops) for c_in, ops in layers]
 
         def lib_go(lib=lib):
             for f in lib:
                 f()
 
+        mine = [r for r in layer_rows if r["block"] == i]
         b_ms, b_by = bound(flops, nbytes)
-        row = {"block": i, "side": side, "layers": len(layers),
-               "variant": db.dense_layer_variant(BATCH, side, side, layers[0][0]),
+        row = {"block": i, "side": state.shape[1], "layers": len(layers),
+               "variants": {v: sum(r["variant"] == v for r in mine)
+                            for v in db.VARIANTS},
                "ms": time_ms(run(db.dense_layer, [blk]), reps=5),
-               "device_ms": dense_device_ms(run(db.dense_layer, [blk]))}
+               "device_ms": dense_device_ms(run(db.dense_layer, [blk]),
+                                            len(layers))}
         for variant in db.VARIANTS:
+            row[f"{variant}_ms"] = time_ms(
+                run(db.dense_layer, [blk], variant=variant), reps=5)
             row[f"{variant}_device_ms"] = dense_device_ms(
-                run(db.dense_layer, [blk], variant=variant))
-        row.update(plain_ms=time_ms(run(db.dense_layer_reference, [blk]), reps=1),
-                   library_ms=time_ms(lib_go, reps=5),
+                run(db.dense_layer, [blk], variant=variant), len(layers))
+        row.update(plain_ms=sum(r["plain_ms"] for r in mine),
+                   library_ms=sum(r["library_ms"] for r in mine),
                    library_device_ms=all_device_ms(lib_go), bound_ms=b_ms,
                    bound_by=b_by, flops=flops, bytes=nbytes)
         log("stack_block", **row)
@@ -327,23 +489,28 @@ def stack_phase():
     flops = sum(r["flops"] for r in rows)
     nbytes = sum(r["bytes"] for r in rows)
     ms = time_ms(run(db.dense_layer, blocks), reps=5)
-    plain_ms = time_ms(run(db.dense_layer_reference, blocks), reps=1)
+    plain_ms = sum(r["plain_ms"] for r in rows)
     library_ms = sum(r["library_ms"] for r in rows)
     # the kernels' own time, without the host gaps between launches
-    device_ms, launches = kernel_device(run(db.dense_layer, blocks),
-                                        *DENSE_KERNELS.values())
-    tile_device_ms = dense_device_ms(run(db.dense_layer, blocks, variant="tile"))
-    b_ms, b_by = bound(flops, nbytes)
     n_layers = sum(len(layers) for _, layers, _, _ in blocks)
+    by_name = traced_kernels(run(db.dense_layer, blocks),
+                             *DENSE_KERNELS.values(), launches=n_layers)
+    routed_device = {v: sum(t for k, (t, _) in by_name.items() if n in k)
+                     for v, n in DENSE_KERNELS.items()}
+    device_ms = sum(routed_device.values())
+    launches = sum(c for _, c in by_name.values())
+    alone = {f"{v}_only_device_ms": dense_device_ms(
+        run(db.dense_layer, blocks, variant=v), n_layers) for v in db.VARIANTS}
+    b_ms, b_by = bound(flops, nbytes)
     log("stack", layers=n_layers, batch=BATCH, data_shape=DATA_SHAPE,
         gflop=flops / 1e9, gbytes=nbytes / 1e9, ms=ms, device_ms=device_ms,
-        tile_only_device_ms=tile_device_ms, profiled_launches=launches,
-        plain_ms=plain_ms, library_ms=library_ms,
+        device_ms_by_variant=routed_device, **alone,
+        profiled_launches=launches, plain_ms=plain_ms, library_ms=library_ms,
         library_device_ms=sum(r["library_device_ms"] for r in rows),
         bound_ms=b_ms, bound_by=b_by, device_tflops=flops / device_ms / 1e9,
         roofline_share=b_ms / device_ms,
-        choice_beats_tile_only=device_ms < tile_device_ms)
-    return rows
+        choice_beats_each_alone=all(device_ms < t for t in alone.values()))
+    return rows, layer_rows, routed_device
 
 
 def random_flax_tree(tree, rng):
@@ -375,6 +542,19 @@ def random_flax_tree(tree, rng):
                 for k, v in t.items()}
 
     return walk(tree)
+
+
+def routed_launches(db):
+    """Launches of each dense-layer kernel that the route names for one
+    batch-8 DenseNet121-512 forward."""
+    counts = dict.fromkeys(db.VARIANTS, 0)
+    side, channels = DATA_SHAPE // 4, 64
+    for num_layers in (6, 12, 24, 16):
+        for j in range(num_layers):
+            counts[db.dense_layer_variant(BATCH, side, side,
+                                          channels + 32 * j)] += 1
+        channels, side = (channels + 32 * num_layers) // 2, side // 2
+    return counts
 
 
 def main_path_phase(dev):
@@ -438,8 +618,10 @@ def main_path_phase(dev):
     if launches != 58 * batches or batches < 1:
         raise SystemExit(f"{launches} dense-layer launches for {batches} "
                          f"batches, expected 58 per batch")
-    if not all(by_variant.values()):
-        raise SystemExit(f"a dense-layer kernel was not launched: {by_variant}")
+    routed = {v: n * batches for v, n in routed_launches(db).items()}
+    if by_variant != routed:
+        raise SystemExit(f"dense-layer launches by kernel {by_variant}, the "
+                         f"route names {routed}")
     if health["status"] != "ok" or health["requests"] < N_REQUESTS:
         raise SystemExit(f"healthz: {health}")
 
@@ -473,7 +655,7 @@ def main_path_phase(dev):
                          atol=1e-2)
     log("main_path", requests=N_REQUESTS, batches=batches, launches=launches,
         launches_per_batch=launches / batches, launches_by_variant=by_variant,
-        wall_s=wall,
+        routed_launches_by_variant=routed, wall_s=wall,
         batch8_latency_ms=latency_ms, frames_per_s=BATCH / latency_ms * 1e3,
         healthz=health, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         logits_rel_err=rel, logit_tol=LOGIT_TOL, top1_agrees=top1,
@@ -558,7 +740,7 @@ def gru_phase(dev):
             ms = time_ms(lambda: gru.gru_recurrence(gx, h0, wh, bh, vl), reps=20)
             device_ms, _ = kernel_device(
                 lambda: gru.gru_recurrence(gx, h0, wh, bh, vl),
-                "gru_recurrence_kernel")
+                "gru_recurrence_kernel", launches=1)
             plain_ms = time_ms(
                 lambda: gru.gru_recurrence_reference(gx, h0, wh, bh, vl),
                 reps=1, rounds=3)
@@ -816,24 +998,36 @@ def build_phase():
                    if "registers" in l or "spill" in l or "smem" in l])
 
 
-def dense_entry(name, variant, stack_rows, launches, max_abs):
-    """The kernels-line entry of one dense-layer variant, over the blocks of
-    the 58-layer stack that the wrapper sends to it."""
-    rows = [r for r in stack_rows if r["variant"] == variant]
-    b_ms, b_by = bound(sum(r["flops"] for r in rows),
-                       sum(r["bytes"] for r in rows))
+def dense_entry(name, variant, stack, launches, max_abs):
+    """The kernels-line entry of one dense-layer variant over the layers of
+    the 58-layer stack that the route sends to it; for a kernel that the
+    route sends nothing, over blocks 2 and 3 (the small maps) run through
+    it alone."""
+    rows, layer_rows, routed_device = stack
+    mine = [r for r in layer_rows if r["variant"] == variant]
+    if mine:
+        ms = sum(r["ms"] for r in mine)
+        device_ms = routed_device[variant]
+        work = (f"the {len(mine)} dense layers of DenseNet121 at "
+                f"{DATA_SHAPE}^2, batch {BATCH}, that the route sends to it")
+    else:
+        small = [r for r in rows if r["block"] >= 2]
+        mine = [r for r in layer_rows if r["block"] >= 2]
+        ms = sum(r[f"{variant}_ms"] for r in small)
+        device_ms = sum(r[f"{variant}_device_ms"] for r in small)
+        work = (f"not routed on the main path; blocks 2-3 ({len(mine)} dense "
+                f"layers) of DenseNet121 at {DATA_SHAPE}^2, batch {BATCH}, "
+                f"run through it alone")
+    b_ms, b_by = bound(sum(r["flops"] for r in mine),
+                       sum(r["bytes"] for r in mine))
     return {
         "name": name, "route": "cuda", "source": f"tennis_torch/csrc/{name}.cu",
         "replaces": "tennis_tpu/ops/pallas/dense_block.py:92",
         "launches": launches[variant], "max_abs_err": max_abs[variant],
-        "ms": sum(r["ms"] for r in rows),
-        "device_ms": sum(r["device_ms"] for r in rows),
-        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "ms": ms, "device_ms": device_ms,
+        "plain_ms": sum(r["plain_ms"] for r in mine),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": sum(r["library_ms"] for r in rows),
-        "work": f"blocks {[r['block'] for r in rows]} "
-                f"({sum(r['layers'] for r in rows)} dense layers) of "
-                f"DenseNet121 at {DATA_SHAPE}^2, batch {BATCH}",
+        "library_ms": sum(r["library_ms"] for r in mine), "work": work,
     }
 
 
@@ -856,16 +1050,20 @@ def main() -> int:
 
     build_phase()
     max_abs = kernel_phase()
-    stack_rows = stack_phase()
+    agree, shapes = route_phase()
+    stack = stack_phase()
     launches = main_path_phase(torch.device("cuda"))
     gru_abs, gru_rows = gru_phase(torch.device("cuda"))
     gru_launches = caption_phase(torch.device("cuda"))
     serve_row = gru_rows["serve_0102"]
+    log("route_summary", shapes=shapes, routed_is_fastest=agree)
 
     print(json.dumps({"kernels": [
-        dense_entry("dense_layer", "tile", stack_rows, launches, max_abs),
-        dense_entry("dense_layer_persistent", "persistent", stack_rows,
-                    launches, max_abs), {
+        dense_entry("dense_layer", "tile", stack, launches, max_abs),
+        dense_entry("dense_layer_persistent", "persistent", stack, launches,
+                    max_abs),
+        dense_entry("dense_layer_cluster", "cluster", stack, launches,
+                    max_abs), {
         "name": "gru_recurrence", "route": "cuda",
         "source": "tennis_torch/csrc/gru_recurrence.cu",
         "replaces": "tennis_tpu/ops/pallas/gru.py:41",

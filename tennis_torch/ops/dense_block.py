@@ -6,14 +6,19 @@ Counterpart of ``tennis_tpu/ops/pallas/dense_block.py``. One launch of
 unpadded NHWC block-state buffer ``(B, H, W, C_block_final)`` and writes the
 layer's growth channels in place, so the concatenated state is never built.
 
-The kernel has two variants. ``csrc/dense_layer_persistent.cu`` runs one
+The kernel has three variants. ``csrc/dense_layer_persistent.cu`` runs one
 CTA per SM with the conv weights resident in shared memory and takes the
-large maps; ``csrc/dense_layer.cu`` runs one CTA per 8x8 tile and takes the
-small ones. ``dense_layer_variant`` chooses by shape.
+maps of side 64 and more, and the 32^2 maps at batch 8;
+``csrc/dense_layer_cluster.cu`` runs one thread-block cluster of 2, 4 or 8
+CTAs per 8x8 tile, splitting c_in and the bottleneck between them, and
+takes the other small maps; ``csrc/dense_layer.cu`` runs one CTA per 8x8
+tile and takes only a c_in past the persistent kernel's budget.
+``dense_layer_route`` chooses the variant (and the cluster size) by map
+side, batch and c_in, as measured on the card.
 
 Beside the kernels sits their plain PyTorch version, ``dense_layer_reference``.
 ``dense_layer`` takes the plain version only for a tensor on the CPU; for a
-CUDA tensor it launches one of the two kernels or raises.
+CUDA tensor it launches one of the kernels or raises.
 
 ``densenet_features`` drives the whole feature extractor: stem, transitions
 and the final BN/pool are plain torch ops, every dense layer goes through
@@ -126,7 +131,7 @@ _W2_ELEMS = 9 * GROWTH * (BOTTLENECK + 8)
 _BNECK_ELEMS = 100 * (BOTTLENECK + 8)
 _X_STAGE_ELEMS = 112 * (CHUNK + 8)
 _W1_STAGE_ELEMS = BOTTLENECK * (CHUNK + 8)
-# maps below this side go to the tile kernel; the persistent kernel was built
+# maps below this side are the small maps; the persistent kernel was built
 # and measured for the 128^2 and 64^2 maps of DenseNet at 512^2
 PERSISTENT_MIN_SIDE = 64
 
@@ -144,30 +149,105 @@ def persistent_smem_bytes(c_in: int) -> tuple[int, bool]:
     return total(resident), resident
 
 
+# The cluster kernel (csrc/dense_layer_cluster.cu), mirrored: CTA r of a
+# cluster of S takes the 32-channel units [r n / S, (r + 1) n / S) of the
+# n = c_in / 32 (conv1 split-K), streamed in CLUSTER_CHUNK-channel steps,
+# then owns bottleneck channels [r F / S, (r + 1) F / S) (the reduce of
+# conv1 and conv2's split-K) and output pixels [r 64 / S, (r + 1) 64 / S)
+# of its tile. Its shared memory: a CLUSTER_STAGES-deep ring of x and w1
+# chunks (later the f32 conv1 partial), its slices of w2 and of the
+# bottleneck and an f32 receive buffer for the conv2 partials of its pixels.
+CLUSTER_SIZES = (2, 4, 8)
+CLUSTER_STAGES = 2
+CLUSTER_CHUNK = 64
+
+
+def cluster_partition(c_in: int, cluster: int):
+    """What each CTA of a cluster of ``cluster`` takes, in rank order:
+    ``(input channels, bottleneck channels, output pixels)``, each a
+    [first, last) pair."""
+    n, f, px = c_in // 32, BOTTLENECK // cluster, 64 // cluster
+    return [((r * n // cluster * 32, (r + 1) * n // cluster * 32),
+             (r * f, (r + 1) * f), (r * px, (r + 1) * px))
+            for r in range(cluster)]
+
+
+def cluster_smem_bytes(cluster: int) -> int:
+    """Dynamic shared-memory bytes of one CTA of the cluster kernel."""
+    ring = 2 * CLUSTER_STAGES * (112 + BOTTLENECK) * (CLUSTER_CHUNK + 8)
+    slices = 2 * (9 * GROWTH + 100) * (BOTTLENECK // cluster + 8)
+    return ring + slices + 4 * 64 * (GROWTH + 8)
+
+
+# Small-map routes (map side < 64), measured on the H100 over the small-map
+# layers of DenseNet121/169/201 at batch 1 and 8 (PERF.md, Findings):
+# keyed by the layer's number of 8x8 tiles (batch x tiles per image) and
+# its c_in. The first row that the layer meets names the kernel. Rows:
+# (most tiles, least c_in, variant, cluster size).
+SMALL_MAP_ROUTES = (
+    (8, 0, "cluster", 8),         # 7x7 at batch 1 and 8; 16^2, 14^2 at batch 1
+    (16, 1344, "cluster", 8),     # 32^2 at batch 1, c_in >= 1344
+    (64, 0, "cluster", 4),        # 32^2 at batch 1 below; 16^2, 14^2 at batch 8
+    (None, 0, "persistent", None),  # 32^2 at batch 8
+)
+
+
+def _small_map_route(tiles: int, c_in: int, variant: str | None = None):
+    rows = [r for r in SMALL_MAP_ROUTES if variant in (None, r[2])]
+    for most, least, v, size in rows:
+        if (most is None or tiles <= most) and c_in >= least:
+            return v, size
+    return rows[-1][2:]
+
+
+def _tiles(batch: int, height: int, width: int) -> int:
+    return batch * -(-height // 8) * -(-width // 8)
+
+
+def dense_layer_route(batch: int, height: int, width: int,
+                      c_in: int) -> tuple[str, int | None]:
+    """``(variant, cluster size)`` that ``dense_layer`` launches for a
+    (batch, height, width) state at ``c_in``; the size is None unless the
+    variant is ``"cluster"``. Maps of side >= 64 go to the persistent
+    kernel; smaller ones follow ``SMALL_MAP_ROUTES``. A c_in past the
+    persistent kernel's budget goes to the tile kernel."""
+    if min(height, width) >= PERSISTENT_MIN_SIDE:
+        variant, cluster = "persistent", None
+    else:
+        variant, cluster = _small_map_route(_tiles(batch, height, width), c_in)
+    if variant == "persistent" and persistent_smem_bytes(c_in)[0] > SMEM_LIMIT:
+        return "tile", None
+    return variant, cluster
+
+
+def dense_layer_cluster_size(batch: int, height: int, width: int,
+                             c_in: int) -> int:
+    """Cluster size of the cluster kernel at this shape: that of the first
+    cluster row of ``SMALL_MAP_ROUTES`` that the layer meets, else that of
+    the last cluster row."""
+    return _small_map_route(_tiles(batch, height, width), c_in, "cluster")[1]
+
+
 def dense_layer_variant(batch: int, height: int, width: int, c_in: int) -> str:
-    """Which kernel ``dense_layer`` launches for a (batch, height, width)
-    state at ``c_in``: ``"persistent"`` for the large maps (every 128^2 and
-    64^2 layer of DenseNet at 512^2), ``"tile"`` for the small ones and for
-    a ``c_in`` whose persistent budget exceeds ``SMEM_LIMIT``."""
-    del batch  # the choice is per map side
-    if (min(height, width) >= PERSISTENT_MIN_SIDE
-            and persistent_smem_bytes(c_in)[0] <= SMEM_LIMIT):
-        return "persistent"
-    return "tile"
+    """Which kernel ``dense_layer`` launches: :func:`dense_layer_route`'s
+    variant."""
+    return dense_layer_route(batch, height, width, c_in)[0]
 
 
-VARIANTS = ("persistent", "tile")
+VARIANTS = ("persistent", "tile", "cluster")
+_LIBRARIES = {"tile": "dense_layer", "persistent": "dense_layer_persistent",
+              "cluster": "dense_layer_cluster"}
 
 
 def _launcher(variant):
     from tennis_torch.ops._build import load_library
 
-    if variant == "tile":
-        fn, n_int = load_library("dense_layer").dense_layer_launch, 7
-    else:
-        fn = load_library("dense_layer_persistent").dense_layer_persistent_launch
-        n_int = 8  # ... bottleneck, growth, max_ctas
+    name = _LIBRARIES[variant]
+    fn = getattr(load_library(name), f"{name}_launch")
     if fn.argtypes is None:
+        # ... bottleneck, growth, then max_ctas (persistent) or the cluster
+        # size (cluster)
+        n_int = 7 if variant == "tile" else 8
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * n_int + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -179,13 +259,14 @@ def _sm_count(device) -> int:
 
 
 def dense_layer(state: torch.Tensor, c_in: int, ops: LayerOperands,
-                variant: str | None = None) -> torch.Tensor:
+                variant: str | None = None,
+                cluster: int | None = None) -> torch.Tensor:
     """One dense layer in place: reads channels ``[0, c_in)`` of the NHWC
     block state, writes its growth part to ``[c_in, c_in + G)``; returns
     ``state``. CUDA tensors go through the kernel that ``variant`` names
-    (``"persistent"`` or ``"tile"``; by default
-    :func:`dense_layer_variant`'s choice); CPU tensors through
-    :func:`dense_layer_reference`, whatever the variant."""
+    (``"persistent"``, ``"tile"`` or ``"cluster"``, with ``cluster`` CTAs per
+    tile; by default :func:`dense_layer_route`'s choice); CPU tensors
+    through :func:`dense_layer_reference`, whatever the variant."""
     if variant is not None and variant not in VARIANTS:
         raise ValueError(f"dense_layer variant must be one of {VARIANTS}, "
                          f"not {variant!r}")
@@ -195,17 +276,24 @@ def dense_layer(state: torch.Tensor, c_in: int, ops: LayerOperands,
         raise ValueError(f"dense_layer runs on cuda or cpu, not {state.device}")
     _check_kernel_args(state, c_in, ops)
     B, H, W, C = state.shape
-    variant = variant or dense_layer_variant(B, H, W, c_in)
+    if variant is None:
+        variant, routed = dense_layer_route(B, H, W, c_in)
+        cluster = cluster or routed
     args = [state.data_ptr(), ops.inv1.data_ptr(), ops.sh1.data_ptr(),
             ops.w1.data_ptr(), ops.inv2.data_ptr(), ops.sh2.data_ptr(),
             ops.w2.data_ptr(), B, H, W, C, c_in, BOTTLENECK, GROWTH]
     if variant == "persistent":
         args.append(_sm_count(state.device))
+    elif variant == "cluster":
+        if cluster is None:
+            cluster = dense_layer_cluster_size(B, H, W, c_in)
+        args.append(cluster)
     stream = torch.cuda.current_stream(state.device).cuda_stream
     with torch.cuda.device(state.device):
         err = _launcher(variant)(*args, stream)
     if err:
-        raise RuntimeError(f"dense_layer {variant} kernel launch failed: "
+        size = f" (cluster {cluster})" if variant == "cluster" else ""
+        raise RuntimeError(f"dense_layer {variant} kernel{size} launch failed: "
                            f"CUDA error {err}")
     dense_layer.launches += 1
     dense_layer.variant_launches[variant] += 1

@@ -1,7 +1,7 @@
-"""The port on a CUDA card: both dense-layer kernels (tile and persistent)
-against their plain version at small and ragged shapes, the wrapper's
-refusals and choice of kernel, DenseNet forwards through the kernels, and
-the GRU kernel. Marked ``cuda``; each test skips without a card. On a
+"""The port on a CUDA card: the three dense-layer kernels (tile, persistent
+and cluster) against their plain version at small and ragged shapes, the
+wrapper's refusals and choice of kernel, DenseNet forwards through the
+kernels, and the GRU kernel. Marked ``cuda``; each test skips without a card. On a
 machine with one, run them without the JAX conftest:
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q``."""
 import pytest
@@ -116,8 +116,79 @@ def test_persistent_budget_mirror_and_refusal(dev):
     assert db.dense_layer.variant_launches == before
 
 
+def _check_layer(got, state, want, c_in):
+    """Growth channels within REL_TOL of the plain version, every other
+    channel bit-identical."""
+    part_g = got[..., c_in:c_in + 32].float()
+    part_w = want[..., c_in:c_in + 32].float()
+    assert torch.isfinite(part_g).all()
+    err = (part_g - part_w).abs().max() / part_w.abs().max()
+    assert err <= REL_TOL, err.item()
+    torch.testing.assert_close(got[..., :c_in], state[..., :c_in], rtol=0, atol=0)
+    torch.testing.assert_close(got[..., c_in + 32:], state[..., c_in + 32:],
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("batch,h,w,c_in,c_final,cluster", [
+    (8, 32, 32, 256, 1024, None),    # block2 first, the routed size
+    (8, 32, 32, 992, 1024, None),    # block2 last
+    (8, 16, 16, 512, 1024, None),    # block3 first
+    (8, 16, 16, 992, 1024, None),    # block3 last
+    (1, 16, 16, 512, 544, None),     # batch 1
+    (1, 32, 32, 256, 288, None),
+    (2, 16, 16, 1888, 1920, None),   # DenseNet201's last c_in
+    (1, 16, 16, 288, 320, 8),        # 9 units over 8 CTAs
+    (2, 7, 7, 512, 544, None),       # ragged 7x7 (224^2 input)
+    (2, 14, 14, 256, 288, None),     # ragged 14x14
+    (2, 32, 32, 256, 288, 2), (2, 32, 32, 256, 288, 4),
+    (2, 32, 32, 256, 288, 8),        # every cluster size
+    (1, 9, 13, 96, 128, 8),          # 3 units: 5 CTAs add zeros
+])
+def test_cluster_kernel_matches_plain(dev, batch, h, w, c_in, c_final, cluster):
+    state, ops = _layer(dev, batch, h, w, c_in, c_final, seed=c_in + h)
+    size = cluster or db.dense_layer_cluster_size(batch, h, w, c_in)
+    assert size in db.CLUSTER_SIZES
+    before = dict(db.dense_layer.variant_launches)
+    got = db.dense_layer(state.clone(), c_in, ops, "cluster", cluster)
+    want = db.dense_layer_reference(state.clone(), c_in, ops)
+    torch.cuda.synchronize()
+    assert db.dense_layer.variant_launches == {
+        **before, "cluster": before["cluster"] + 1}
+    _check_layer(got, state, want, c_in)
+
+
+def test_cluster_kernel_is_deterministic(dev):
+    """The partials are summed in rank order: two launches agree bit for bit."""
+    state, ops = _layer(dev, 8, 16, 16, 992, 1024)
+    a = db.dense_layer(state.clone(), 992, ops, "cluster", 8)
+    b = db.dense_layer(state.clone(), 992, ops, "cluster", 8)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_cluster_budget_mirror_and_refusals(dev):
+    """The launcher's budget equals the Python mirror; a cluster size it
+    does not take raises, with no launch and no fallback."""
+    import ctypes
+
+    from tennis_torch.ops._build import load_library
+
+    fn = load_library("dense_layer_cluster").dense_layer_cluster_smem
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    for cluster in db.CLUSTER_SIZES:
+        assert fn(cluster) == db.cluster_smem_bytes(cluster)
+    assert fn(1) == fn(3) == fn(16) == -1
+    state, ops = _layer(dev, 1, 3, 3, 64, 96)
+    for cluster in (1, 3, 16):
+        before = dict(db.dense_layer.variant_launches)
+        with pytest.raises(RuntimeError, match="cluster"):
+            db.dense_layer(state, 64, ops, "cluster", cluster)
+        assert db.dense_layer.variant_launches == before
+
+
 def test_wrapper_dispatches_by_map(dev):
-    for side, variant in ((128, "persistent"), (16, "tile")):
+    for side, variant in ((128, "persistent"), (16, "cluster")):
         state, ops = _layer(dev, 1, side, side, 64, 96)
         assert db.dense_layer_variant(1, side, side, 64) == variant
         before = dict(db.dense_layer.variant_launches)
@@ -127,17 +198,24 @@ def test_wrapper_dispatches_by_map(dev):
 
 def test_densenet_forward_takes_both_kernels(dev):
     """At 256^2 the first block's 64^2 map goes to the persistent kernel and
-    the second block's 32^2 map to the tile kernel; the forward agrees with
-    the plain-version forward on the same card."""
+    the second block's 32^2 map (batch 1) to the cluster kernel: the forward
+    takes exactly the kernels the route names, and agrees with the
+    plain-version forward on the same card."""
     gen = torch.Generator().manual_seed(0)
-    model = DenseNet(DenseNetSpec((2, 3), 32, 64), generator=gen).to(dev).eval()
+    spec = DenseNetSpec((2, 3), 32, 64)
+    model = DenseNet(spec, generator=gen).to(dev).eval()
     model.fold()
     x = torch.randn(1, 256, 256, 3, generator=gen).to(dev)
+    routed = dict.fromkeys(db.VARIANTS, 0)
+    for side, c_ins in ((64, (64, 96)), (32, (64, 96, 128))):
+        for c_in in c_ins:
+            routed[db.dense_layer_variant(1, side, side, c_in)] += 1
+    assert routed == {"persistent": 2, "tile": 0, "cluster": 3}
     with torch.inference_mode():
         before = dict(db.dense_layer.variant_launches)
         got = model(x).float()
         assert db.dense_layer.variant_launches == {
-            "persistent": before["persistent"] + 2, "tile": before["tile"] + 3}
+            v: before[v] + routed[v] for v in db.VARIANTS}
         want = db.densenet_features(model.spec, model.operands(), x, model.dtype,
                                     layer=db.dense_layer_reference).float()
     err = (got - want).abs().max() / want.abs().max()

@@ -2,11 +2,11 @@
 shared-memory budget, on CPU.
 
 ``dense_layer_variant`` sends the large maps of DenseNet at 512^2 to the
-persistent kernel (``csrc/dense_layer_persistent.cu``) and the small ones to
-the tile kernel (``csrc/dense_layer.cu``); ``persistent_smem_bytes`` mirrors
-the launcher's budget. On CPU tensors ``dense_layer`` still runs its plain
-version, whatever the variant, and that still matches the JAX Pallas kernel
-in interpret mode.
+persistent kernel (``csrc/dense_layer_persistent.cu``) and the small ones
+to the persistent or the cluster kernel (``csrc/dense_layer_cluster.cu``),
+as measured; ``persistent_smem_bytes`` mirrors the launcher's budget. On CPU
+tensors ``dense_layer`` still runs its plain version, whatever the variant,
+and that still matches the JAX Pallas kernel in interpret mode.
 """
 import os
 import re
@@ -48,12 +48,19 @@ def test_every_128_map_layer_goes_persistent(depth, batch):
 
 @pytest.mark.parametrize("depth", [121, 169, 201])
 def test_small_maps_go_to_the_tile_kernel(depth):
+    """The small maps follow the measured routes (PERF.md): at batch 8
+    the 32^2 map goes to the persistent kernel and the 16^2 map to clusters
+    of 4; at batch 1 the 32^2 map to clusters of 4 (of 8 from c_in 1344) and
+    the 16^2 map to clusters of 8; nothing goes to the tile kernel."""
     small = [(s, c) for b, s, c in block_layers(depth) if s < db.PERSISTENT_MIN_SIDE]
     assert {s for s, _ in small} == {32, 16}
     for side, c_in in small:
-        assert db.dense_layer_variant(8, side, side, c_in) == "tile"
-    # a ragged 7x7 map (DenseNet at 224^2) as well
-    assert db.dense_layer_variant(8, 7, 7, 512) == "tile"
+        want8 = ("persistent", None) if side == 32 else ("cluster", 4)
+        want1 = ("cluster", 8 if side == 16 or c_in >= 1344 else 4)
+        assert db.dense_layer_route(8, side, side, c_in) == want8
+        assert db.dense_layer_route(1, side, side, c_in) == want1
+    # the ragged 7x7 map (DenseNet at 224^2) as well
+    assert db.dense_layer_route(8, 7, 7, 512) == ("cluster", 8)
 
 
 @pytest.mark.parametrize("depth", [121, 169, 201])
@@ -99,7 +106,7 @@ def test_unknown_variant_raises():
         db.dense_layer(torch.zeros(1, 4, 4, 96), 64, ops, "wgmma")
 
 
-@pytest.mark.parametrize("variant", [None, "persistent", "tile"])
+@pytest.mark.parametrize("variant", [None, "persistent", "tile", "cluster"])
 def test_cpu_runs_the_plain_version_and_matches_pallas(variant):
     """On CPU every variant runs the plain version (no launch), which agrees
     with dense_layer_pallas(interpret=True) in f32 at one 16^2 shape."""
