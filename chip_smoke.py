@@ -31,23 +31,32 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    ``GET /healthz`` over HTTP, probabilities checked, 58 kernel launches per
    batch split between the kernels as the wrapper's route names them,
    batch-8 logits against the plain-version forward;
-5. GRU kernel vs plain version: ``gru_recurrence`` against
-   ``gru_recurrence_reference`` in f32 at the 0102 serving shape (T 128,
-   batch 4, H 256), the evaluate batch (32), the default width (H 128) and
-   T 1; times of the kernel, the plain version, the port's whole layer
+5. GRU kernels vs plain version: ``gru_recurrence`` against
+   ``gru_recurrence_reference`` in f32, both kernels (``"async"`` at every
+   cluster size that takes the shape, and ``"barrier"`` where it fits), at
+   the 0102 serving shape (T 128, batch 4, H 256), the measured ``/caption``
+   lengths 21/30/104/69 (every row ends before T), H 512, the evaluate batch
+   (32), the default width (H 128) and T 1; device times of each, which one
+   the route takes, times of the plain version, the port's whole layer
    (input GEMM + kernel) and cuDNN's ``nn.GRU`` over the same layer, the
-   bound, the serial floor (T cluster-barrier round trips) and the exchange
-   floor (T round trips with the kernel's own distributed-shared-memory
-   stores);
+   bound, and the serial floors: T cluster-barrier round trips for the
+   barrier kernel, one ``st.async`` + mbarrier round trip of the kernel's
+   own exchange per live step for the async one;
 6. caption path: the 0102 captioner (features 4096, H 256, 2 layers, 1
    bidirectional, E 100, V 254) with seeded random weights in flax naming,
    served by ``make_service``: 8 concurrent ``POST /caption`` over HTTP at
    ``--caption_batch_size 4``, ``--src_max_len 128``, beam 4, max length 70;
-   3 GRU-kernel launches per batch, the kernel-path encoder against the
+   3 GRU-kernel launches per batch by the routed variant, the kernel-path
+   encoder against the
    plain-version encoder, and the kernel path's top beams rescored
    teacher-forced through the plain-encoded decoder; latency split into
    encode and decode loop, device busy and idle share;
-7. ``{"kernels": [...]}``, then the card line, then ``{"ok": true, ...}``.
+7. DenseNet161 path: ``FrameModel(DenseNet161)`` at 224^2 with seeded
+   random weights, its batch-2 warm-up forward through ``make_service``:
+   78 dense layers through ``dense_layer_convs`` (widths no TPU kernel
+   computes), no dense-kernel launch, logits against the plain-version
+   forward;
+8. ``{"kernels": [...]}``, then the card line, then ``{"ok": true, ...}``.
 
 Any failure exits nonzero before the last line. Without a GPU, or without
 the repo beside it, it exits nonzero and prints no result.
@@ -82,13 +91,19 @@ BATCH = 8
 N_REQUESTS = 16
 SEED = 0
 KERNELS = ["dense_layer", "dense_layer_persistent", "dense_layer_cluster",
-           "gru_recurrence"]
+           "gru_recurrence", "gru_recurrence_async"]
 # profiler name of each dense-layer kernel variant (no name holds another);
 # the cluster kernel's name also carries its cluster size, <2>, <4> or <8>
 DENSE_KERNELS = {"persistent": "dense_layer_persistent_kernel",
                  "tile": "dense_layer_kernel",
                  "cluster": "dense_layer_cluster_kernel"}
+# profiler name of each GRU kernel variant (neither name holds the other)
+GRU_KERNELS = {"barrier": "gru_recurrence_kernel",
+               "async": "gru_recurrence_async_kernel"}
 ROUTE_ROUNDS = 3
+# profiler sessions tried before a trace that dropped kernel records fails
+# the run (three in a row did, once in a dozen runs)
+TRACE_ATTEMPTS = 6
 ROUTE_REPS = 3
 
 # the 0102 captioner (README, train_gnmt flags): 0006 features, 2 GRU layers
@@ -100,11 +115,17 @@ VOCAB_WORDS = 250
 SRC_MAX_LEN = 128
 CAPTION_BATCH = 4
 N_CAPTIONS = 8
+# DenseNet161 (bottleneck 192, growth 48) at the 224^2 of its ImageNet config
+D161_SHAPE = 224
+D161_BATCH = 2
 
-# (name, T, batch, H, valid lengths): the 0102 serving shape, the evaluate
-# batch (--test_batch_size 32), the default --num_hidden, one step
+# (name, T, batch, H, valid lengths): the 0102 serving shape, the lengths of
+# the measured /caption batch (all end before T), --num_hidden 512, the
+# evaluate batch (--test_batch_size 32), the default --num_hidden, one step
 GRU_CASES = [
     ("serve_0102", 128, 4, 256, [128, 100, 37, 1]),
+    ("caption_lengths", 128, 4, 256, [21, 30, 104, 69]),
+    ("serve_h512", 128, 4, 512, [128, 100, 37, 1]),
     ("evaluate_b32", 128, 32, 256, [128 * (31 - i) // 31 for i in range(32)]),
     ("default_h128", 128, 4, 128, [128, 100, 37, 1]),
     ("t1", 1, 4, 256, [1, 0, 1, 1]),
@@ -180,14 +201,19 @@ def traced_kernels(fn, *names, launches=None):
     """{name: [device ms, launches]} of the kernels whose name holds one of
     ``names`` (any kernel without names) over one call of ``fn``. A trace
     that recorded none of them, or not ``launches`` of them, is taken again,
-    up to three times: the tracer drops a session's records now and then."""
-    for _ in range(3):
+    up to TRACE_ATTEMPTS times: the tracer drops a session's records now and
+    then."""
+    seen = []
+    for attempt in range(TRACE_ATTEMPTS):
+        if attempt:
+            time.sleep(0.5)
         hits = {k: v for k, v in device_profile(fn).items()
                 if not names or any(n in k for n in names)}
-        if hits and launches in (None, sum(v[1] for v in hits.values())):
+        seen.append(sum(v[1] for v in hits.values()))
+        if hits and launches in (None, seen[-1]):
             return hits
-    raise SystemExit(f"the profiler recorded {len(hits)} kernels {names or ''} "
-                     f"where {launches} launches were expected, 3 times")
+    raise SystemExit(f"the profiler recorded {seen} launches of the kernels "
+                     f"{names or ''} where {launches} were expected")
 
 
 def kernel_device(fn, *names, launches=None):
@@ -360,8 +386,11 @@ def route_phase():
 
     def traced_round(rnd):
         """[(case, key, device ms)] of one round's launches, in order; a
-        trace that dropped records is taken again, up to three times."""
-        for _ in range(3):
+        trace that dropped records is taken again, up to TRACE_ATTEMPTS
+        times."""
+        for attempt in range(TRACE_ATTEMPTS):
+            if attempt:
+                time.sleep(0.5)
             launch_all(rnd)  # warm: every kernel built, its cluster size checked
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
@@ -376,7 +405,7 @@ def route_phase():
                 return [(i, key, e.time_range.elapsed_us() / 1e3)
                         for (i, key), e in zip(order, records)]
         raise SystemExit(f"route phase: {len(records)} kernel records for "
-                         f"{len(order)} launches, 3 times")
+                         f"{len(order)} launches, {TRACE_ATTEMPTS} times")
 
     times = [{} for _ in cases]  # key -> [per-round mean ms]
     for rnd in range(ROUTE_ROUNDS):
@@ -547,7 +576,7 @@ def random_flax_tree(tree, rng):
 def routed_launches(db):
     """Launches of each dense-layer kernel that the route names for one
     batch-8 DenseNet121-512 forward."""
-    counts = dict.fromkeys(db.VARIANTS, 0)
+    counts = dict.fromkeys(db.ROUTES, 0)
     side, channels = DATA_SHAPE // 4, 64
     for num_layers in (6, 12, 24, 16):
         for j in range(num_layers):
@@ -588,7 +617,7 @@ def main_path_phase(dev):
 
         batches0 = batcher.batches
         db.dense_layer.launches = 0
-        db.dense_layer.variant_launches = dict.fromkeys(db.VARIANTS, 0)
+        db.dense_layer.variant_launches = dict.fromkeys(db.ROUTES, 0)
         start = time.perf_counter()
         threads = [threading.Thread(target=request, args=(i,))
                    for i in range(N_REQUESTS)]
@@ -665,12 +694,19 @@ def main_path_phase(dev):
     return by_variant
 
 
-def cluster_round_trip_us(writers: int):
-    """What chains two steps of the GRU kernel, in microseconds: ``writers``
-    threads of each CTA of an 8-CTA cluster store one float into every CTA
-    through distributed shared memory, then one cluster barrier. One writer
-    times the barrier; the kernel's R x H/8 gate threads time its exchange.
-    Differenced over two loop lengths, so launch cost cancels."""
+def _round_trip_us(launch):
+    """Microseconds a round of ``launch(iters)`` takes, differenced over two
+    loop lengths, so launch cost cancels."""
+    short, long_ = 64, 4096
+    t_short = time_ms(lambda: launch(short), reps=3)
+    t_long = time_ms(lambda: launch(long_), reps=3)
+    return (t_long - t_short) / (long_ - short) * 1e3
+
+
+def cluster_round_trip_us():
+    """What chains two steps of the barrier GRU kernel, in microseconds: one
+    thread of each CTA of an 8-CTA cluster stores one float into every CTA
+    through distributed shared memory, then one cluster barrier."""
     from tennis_torch.ops._build import load_library
 
     fn = load_library("gru_recurrence").cluster_sync_probe_launch
@@ -679,15 +715,32 @@ def cluster_round_trip_us(writers: int):
     sink = torch.empty(8, device="cuda")
 
     def run(iters):
-        err = fn(iters, writers, sink.data_ptr(),
+        err = fn(iters, 1, sink.data_ptr(),
                  torch.cuda.current_stream().cuda_stream)
         if err:
             raise SystemExit(f"cluster probe launch failed: CUDA error {err}")
 
-    short, long_ = 64, 4096
-    t_short = time_ms(lambda: run(short), reps=3)
-    t_long = time_ms(lambda: run(long_), reps=3)
-    return (t_long - t_short) / (long_ - short) * 1e3
+    return _round_trip_us(run)
+
+
+def exchange_round_trip_us(cluster: int, floats: int):
+    """What chains two steps of the async GRU kernel, in microseconds: each
+    CTA of a cluster arms its mbarrier, sends ``floats`` floats (the kernel's
+    rows x units) into every CTA as 16-byte st.async stores, and waits."""
+    from tennis_torch.ops._build import load_library
+
+    fn = load_library("gru_recurrence_async").gru_exchange_probe_launch
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    sink = torch.empty(cluster, device="cuda")
+
+    def run(iters):
+        err = fn(iters, floats, cluster, sink.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"exchange probe launch failed: CUDA error {err}")
+
+    return _round_trip_us(run)
 
 
 def gru_work(T, B, H, lengths):
@@ -700,15 +753,25 @@ def gru_work(T, B, H, lengths):
     return flops, nbytes
 
 
+def gru_runs(gru, H, B):
+    """(key, variant, cluster) of every GRU kernel configuration that takes
+    (H, B): the barrier kernel where it fits, the async one at every
+    cluster size whose plan exists."""
+    runs = [("barrier", "barrier", None)] if gru.barrier_fits(H, B) else []
+    return runs + [(f"async{c}", "async", c) for c in gru.ASYNC_CLUSTERS
+                   if gru.gru_plan(H, B, c) is not None]
+
+
 def gru_phase(dev):
-    """The GRU kernel against its plain version at every GRU_CASES shape,
-    with its times beside the port's whole layer and cuDNN's nn.GRU over
-    the same full-length layer from FEAT_DIM features."""
+    """Both GRU kernels against their plain version at every GRU_CASES
+    shape, with their times beside the port's whole layer and cuDNN's
+    nn.GRU over the same full-length layer from FEAT_DIM features. Returns
+    the worst error of each variant and the per-case rows."""
     from tennis_torch.ops import gru
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    barrier_us = cluster_round_trip_us(1)
-    rows, worst = {}, 0.0
+    barrier_us = cluster_round_trip_us()
+    rows, worst = {}, dict.fromkeys(gru.VARIANTS, 0.0)
     for name, T, B, H, lengths in GRU_CASES:
         def rand(*shape, std=1.0):
             return torch.empty(shape, device=dev).normal_(0.0, std, generator=gen)
@@ -720,58 +783,70 @@ def gru_phase(dev):
         vl = torch.tensor(lengths, dtype=torch.int32, device=dev)
         full = torch.full((B,), T, dtype=torch.int32, device=dev)
         gx = torch.matmul(x, wx) + bx
+        routed = gru.gru_route(T, B, H)
+        plan = gru.gru_plan(H, B)
+        routed_key = f"async{plan.cluster}" if routed == "async" else routed
+        t_live = max(min(max(n, 0), T) for n in lengths)
+        by_key, ok = {}, True
         with torch.inference_mode():
-            ys, h = gru.gru_recurrence(gx, h0, wh, bh, vl)
             ys_ref, h_ref = gru.gru_recurrence_reference(gx, h0, wh, bh, vl)
-            torch.cuda.synchronize()
-        err = max((ys - ys_ref).abs().max().item(), (h - h_ref).abs().max().item())
-        finite = bool(torch.isfinite(ys).all() and torch.isfinite(h).all())
-        frozen = all(not ys[n:, b].any() for b, n in enumerate(lengths))
+            for key, variant, c in gru_runs(gru, H, B):
+                def call(variant=variant, c=c):
+                    return gru.gru_recurrence(gx, h0, wh, bh, vl, variant, c)
 
-        lib = torch.nn.GRU(FEAT_DIM, H).to(dev)
-        with torch.no_grad():
-            for p, v in ((lib.weight_ih_l0, wx.t()), (lib.weight_hh_l0, wh.t()),
-                         (lib.bias_ih_l0, bx), (lib.bias_hh_l0, bh)):
-                p.copy_(v)
-        with torch.inference_mode():
-            ys_lib, _ = lib(x, h0[None])
-            ys_layer, _ = gru.gru_sequence(x, h0, wx, wh, bx, bh, full)
-            lib_err = (ys_lib - ys_layer).abs().max().item()
-            ms = time_ms(lambda: gru.gru_recurrence(gx, h0, wh, bh, vl), reps=20)
-            device_ms, _ = kernel_device(
-                lambda: gru.gru_recurrence(gx, h0, wh, bh, vl),
-                "gru_recurrence_kernel", launches=1)
+                ys, h = call()
+                torch.cuda.synchronize()
+                err = max((ys - ys_ref).abs().max().item(),
+                          (h - h_ref).abs().max().item())
+                finite = bool(torch.isfinite(ys).all() and torch.isfinite(h).all())
+                frozen = all(not ys[n:, b].any() for b, n in enumerate(lengths))
+                v_ok = finite and frozen and err <= GRU_TOL
+                ok = ok and v_ok
+                worst[variant] = max(worst[variant], err)
+                device_ms = kernel_device(call, GRU_KERNELS[variant],
+                                          launches=1)[0]
+                steps = T if variant == "barrier" else t_live
+                by_key[key] = {"max_abs_err": err, "finite": finite,
+                               "zero_past_length": frozen, "ok": v_ok,
+                               "ms": time_ms(call, reps=20),
+                               "device_ms": device_ms, "steps": steps,
+                               "us_per_step": device_ms / max(steps, 1) * 1e3}
             plain_ms = time_ms(
                 lambda: gru.gru_recurrence_reference(gx, h0, wh, bh, vl),
                 reps=1, rounds=3)
             layer_ms = time_ms(
                 lambda: gru.gru_sequence(x, h0, wx, wh, bx, bh, full), reps=20)
+            lib = torch.nn.GRU(FEAT_DIM, H).to(dev)
+            for p, v in ((lib.weight_ih_l0, wx.t()), (lib.weight_hh_l0, wh.t()),
+                         (lib.bias_ih_l0, bx), (lib.bias_hh_l0, bh)):
+                p.copy_(v)
+            ys_lib, _ = lib(x, h0[None])
+            ys_layer, _ = gru.gru_sequence(x, h0, wx, wh, bx, bh, full)
+            lib_err = (ys_lib - ys_layer).abs().max().item()
             library_ms = time_ms(lambda: lib(x, h0[None]), reps=20)
-        S, R = gru._split(H, B)
-        writers = min(R, B) * (H // gru.CLUSTER)
-        exchange_us = cluster_round_trip_us(writers)
+        exchange_us = exchange_round_trip_us(plan.cluster, plan.rows * plan.units)
         flops, nbytes = gru_work(T, B, H, lengths)
         t_ops = flops / PEAK_F32_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
-        row = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-               "layer_ms": layer_ms, "library_ms": library_ms,
-               "bound_ms": max(t_ops, t_bytes),
+        fastest = min(by_key, key=lambda k: by_key[k]["device_ms"])
+        row = {"ms": by_key[routed_key]["ms"],
+               "device_ms": by_key[routed_key]["device_ms"],
+               "plain_ms": plain_ms, "layer_ms": layer_ms,
+               "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "serial_floor_ms": T * barrier_us / 1e3,
-               "exchange_floor_ms": T * exchange_us / 1e3}
-        ok = finite and frozen and err <= GRU_TOL
+               "serial_floor_ms": t_live * exchange_us / 1e3,
+               "barrier_serial_floor_ms": T * barrier_us / 1e3}
         log("gru_kernel", case=name, T=T, batch=B, hidden=H, lengths=lengths,
-            max_abs_err=err, tol=GRU_TOL, finite=finite,
-            zero_past_length=frozen, smem_bytes=gru._smem_bytes(H, S, R),
-            segments=S, rows_per_cluster=R, gflop=flops / 1e9,
-            mbytes=nbytes / 1e6, cluster_round_trip_us=barrier_us,
-            exchange_writers=writers, exchange_round_trip_us=exchange_us,
+            live_steps=t_live, tol=GRU_TOL, routed=routed_key, fastest=fastest,
+            routed_over_fastest=by_key[routed_key]["device_ms"]
+            / by_key[fastest]["device_ms"], variants=by_key,
+            plan=plan._asdict(), gflop=flops / 1e9, mbytes=nbytes / 1e6,
+            cluster_round_trip_us=barrier_us, exchange_round_trip_us=exchange_us,
             library_vs_layer_full_length_err=lib_err, ok=ok, **row)
         if not ok:
-            raise SystemExit(f"gru_recurrence kernel disagrees with its plain "
+            raise SystemExit(f"a gru_recurrence kernel disagrees with its plain "
                              f"version at {name}")
-        worst = max(worst, err)
-        rows[name] = row
+        rows[name] = {**row, "variants": by_key}
     return worst, rows
 
 
@@ -857,6 +932,7 @@ def caption_phase(dev):
 
         batches0 = batcher.batches
         gru.gru_recurrence.launches = 0
+        gru.gru_recurrence.variant_launches = dict.fromkeys(gru.VARIANTS, 0)
         start = time.perf_counter()
         threads = [threading.Thread(target=request, args=(i,))
                    for i in range(N_CAPTIONS)]
@@ -866,6 +942,7 @@ def caption_phase(dev):
             t.join(timeout=600)
         wall = time.perf_counter() - start
         launches = gru.gru_recurrence.launches
+        by_variant = dict(gru.gru_recurrence.variant_launches)
         batches = batcher.batches - batches0
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
@@ -879,9 +956,12 @@ def caption_phase(dev):
     if not (in_vocab and used_ok):
         raise SystemExit(f"bad captions: in_vocab={in_vocab} "
                          f"frames_used_ok={used_ok}")
-    if batches < 1 or launches != 3 * batches:
-        raise SystemExit(f"{launches} GRU launches for {batches} caption "
-                         f"batches, expected 3 per batch")
+    routed = gru.gru_route(SRC_MAX_LEN, CAPTION_BATCH, args.num_hidden)
+    if batches < 1 or launches != 3 * batches or \
+            by_variant[routed] != launches:
+        raise SystemExit(f"{launches} GRU launches ({by_variant}) for "
+                         f"{batches} caption batches, expected 3 per batch "
+                         f"through the {routed} kernel")
     if health["status"] != "ok" or health["caption_requests"] < N_CAPTIONS:
         raise SystemExit(f"healthz: {health}")
 
@@ -951,11 +1031,11 @@ def caption_phase(dev):
         device_busy_ms=busy_ms, idle_share=1 - busy_ms / latency_ms,
         device_launches=sum(v[1] for v in kernels.values()),
         gru_kernel_ms=sum(v[0] for k, v in kernels.items()
-                          if "gru_recurrence_kernel" in k),
+                          if any(n in k for n in GRU_KERNELS.values())),
         top=[[k[:60], v[0], v[1]] for k, v in top])
     ok = enc_err <= GRU_TOL and rescore_err <= RESCORE_TOL
     log("caption_path", requests=N_CAPTIONS, frames=lens.tolist(),
-        batches=batches, launches=launches,
+        batches=batches, launches=launches, launches_by_variant=by_variant,
         launches_per_batch=launches / batches, wall_s=wall, healthz=health,
         vocab=len(vocab), tokens_per_caption=[len(r["tokens"]) for r in results],
         first_caption=results[0]["caption"][:80],
@@ -967,7 +1047,69 @@ def caption_phase(dev):
     if not ok:
         raise SystemExit("caption path disagrees with its plain-version "
                          "encoder")
-    return launches
+    return by_variant
+
+
+def densenet161_phase(dev):
+    """FrameModel(DenseNet161) at 224^2 with seeded random weights: its
+    batch-2 warm-up forward through make_service takes every dense layer
+    through dense_layer_convs and no dense kernel, and its logits agree with
+    the plain-version forward."""
+    from tennis_torch.bridge import load_flax, to_flax
+    from tennis_torch.data.tennis_set import DEFAULT_CLASSES
+    from tennis_torch.data.transforms import device_prepare
+    from tennis_torch.inference import build_frame_model, make_predict_probs
+    from tennis_torch.ops import dense_block as db
+    from tennis_torch.serve import make_service
+
+    rng = np.random.default_rng(SEED + 5)
+    classes = list(DEFAULT_CLASSES)
+    model = build_frame_model("DenseNet161", len(classes), D161_SHAPE)
+    load_flax(model, random_flax_tree(to_flax(model), rng))
+    predict_probs = make_predict_probs(model, dev)
+    db.dense_layer.launches = 0
+    db.dense_layer.variant_launches = dict.fromkeys(db.ROUTES, 0)
+    t0 = time.perf_counter()
+    make_service(classes, predict_probs, D161_BATCH, D161_SHAPE)  # warm-up
+    warm_s = time.perf_counter() - t0
+    launches = db.dense_layer.launches
+    by_variant = dict(db.dense_layer.variant_launches)
+    n_layers = sum(model.backbone.spec.block_config)
+    want_counts = {**dict.fromkeys(db.ROUTES, 0), "convs": n_layers}
+    if n_layers != 78 or launches != 0 or by_variant != want_counts:
+        raise SystemExit(f"DenseNet161 warm-up: {launches} dense-kernel "
+                         f"launches, {by_variant} by route; expected none and "
+                         f"{n_layers} (78) through dense_layer_convs")
+    frames = rng.integers(0, 256, (D161_BATCH, D161_SHAPE, D161_SHAPE, 3),
+                          dtype=np.uint8)
+    probs = predict_probs(frames)
+    lat = []
+    for _ in range(10):
+        t1 = time.perf_counter()
+        predict_probs(frames)
+        lat.append((time.perf_counter() - t1) * 1e3)
+    busy_ms = sum(v[0] for v in device_profile(
+        lambda: predict_probs(frames)).values())
+    with torch.inference_mode():
+        x = device_prepare(torch.from_numpy(frames).to(dev))
+        got = db.frame_model_apply(model, x)
+        want = db.frame_model_apply(model, x, layer=db.dense_layer_reference)
+        torch.cuda.synchronize()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    top1 = bool((got.argmax(-1) == want.argmax(-1)).all())
+    finite = bool(np.isfinite(probs).all()) and probs.shape == (
+        D161_BATCH, len(classes))
+    ok = finite and rel <= LOGIT_TOL and top1
+    log("densenet161", batch=D161_BATCH, data_shape=D161_SHAPE,
+        dense_layers=n_layers, kernel_launches=launches,
+        launches_by_route=by_variant, warm_up_s=warm_s,
+        latency_ms=statistics.median(lat), device_busy_ms=busy_ms,
+        logits_rel_err=rel, logit_tol=LOGIT_TOL, top1_agrees=top1,
+        finite=finite, ok=ok)
+    if not ok:
+        raise SystemExit("DenseNet161 forward disagrees with its plain-version "
+                         "forward")
+    return by_variant
 
 
 def build_phase():
@@ -1031,6 +1173,34 @@ def dense_entry(name, variant, stack, launches, max_abs):
     }
 
 
+def gru_entry(name, variant, rows, launches, max_abs):
+    """The kernels-line entry of one GRU variant at the 0102 serving shape;
+    the async one at the cluster size its plan takes there."""
+    from tennis_torch.ops import gru
+
+    _, T, B, H, lengths = GRU_CASES[0]
+    row = rows["serve_0102"]
+    key = "barrier" if variant == "barrier" else \
+        f"async{gru.gru_plan(H, B).cluster}"
+    mine = row["variants"][key]
+    return {
+        "name": name, "route": "cuda", "source": f"tennis_torch/csrc/{name}.cu",
+        "replaces": "tennis_tpu/ops/pallas/gru.py:41",
+        "launches": launches[variant], "max_abs_err": max_abs[variant],
+        "ms": mine["ms"], "device_ms": mine["device_ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "layer_ms": row["layer_ms"], "us_per_step": mine["us_per_step"],
+        "serial_floor_ms": row["serial_floor_ms"] if variant == "async"
+        else row["barrier_serial_floor_ms"],
+        "work": f"one GRU recurrence of the 0102 encoder: T {T}, batch {B}, "
+                f"H {H}, lengths {lengths} ({key}); launches count the "
+                f"/caption batches served; library_ms (cuDNN nn.GRU) and "
+                f"layer_ms (the port) cover the whole layer from {FEAT_DIM} "
+                f"features at full length",
+    }
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "tennis_torch")):
         print("chip_smoke: tennis_torch/ is not beside this script",
@@ -1055,7 +1225,7 @@ def main() -> int:
     launches = main_path_phase(torch.device("cuda"))
     gru_abs, gru_rows = gru_phase(torch.device("cuda"))
     gru_launches = caption_phase(torch.device("cuda"))
-    serve_row = gru_rows["serve_0102"]
+    densenet161_phase(torch.device("cuda"))
     log("route_summary", shapes=shapes, routed_is_fastest=agree)
 
     print(json.dumps({"kernels": [
@@ -1063,16 +1233,10 @@ def main() -> int:
         dense_entry("dense_layer_persistent", "persistent", stack, launches,
                     max_abs),
         dense_entry("dense_layer_cluster", "cluster", stack, launches,
-                    max_abs), {
-        "name": "gru_recurrence", "route": "cuda",
-        "source": "tennis_torch/csrc/gru_recurrence.cu",
-        "replaces": "tennis_tpu/ops/pallas/gru.py:41",
-        "launches": gru_launches, "max_abs_err": gru_abs, **serve_row,
-        "work": "one GRU recurrence of the 0102 encoder: T 128, batch 4, "
-                "H 256, lengths [128, 100, 37, 1]; library_ms (cuDNN "
-                "nn.GRU) and layer_ms (the port) cover the whole layer "
-                f"from {FEAT_DIM} features at full length",
-    }]}))
+                    max_abs),
+        gru_entry("gru_recurrence", "barrier", gru_rows, gru_launches, gru_abs),
+        gru_entry("gru_recurrence_async", "async", gru_rows, gru_launches,
+                  gru_abs)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

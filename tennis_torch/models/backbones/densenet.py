@@ -8,8 +8,10 @@ concatenating formulation, with the same parameter names: ``conv0``, ``bn0``,
 
 The forward goes through :func:`tennis_torch.ops.dense_block.densenet_features`:
 every dense layer through the dense-layer kernel, the stem, transitions and
-head as plain torch ops. Train mode, ``remat`` and ``concat_free`` are not
-ported yet.
+head as plain torch ops. DenseNet161's layers (bottleneck 192, growth 48),
+which no TPU kernel computes, take ``dense_layer_convs`` instead: the route
+decides by width. Train mode, ``remat`` and ``concat_free`` are not ported
+yet.
 """
 from __future__ import annotations
 

@@ -16,6 +16,13 @@ tile and takes only a c_in past the persistent kernel's budget.
 ``dense_layer_route`` chooses the variant (and the cluster size) by map
 side, batch and c_in, as measured on the card.
 
+The TPU kernel computes bottleneck 128 and growth 32 only (it asserts
+F == 128), and so do the three CUDA kernels. A layer of other widths
+(DenseNet161: bottleneck 192, growth 48) is one that the JAX package runs
+through its flax module, i.e. XLA convolutions outside any Pallas kernel;
+its counterpart here is ``dense_layer_convs``, two ``F.conv2d`` calls, which
+the route names ``"convs"`` from the widths alone.
+
 Beside the kernels sits their plain PyTorch version, ``dense_layer_reference``.
 ``dense_layer`` takes the plain version only for a tensor on the CPU; for a
 CUDA tensor it launches one of the kernels or raises.
@@ -86,6 +93,26 @@ def dense_layer_reference(state: torch.Tensor, c_in: int,
     b = torch.relu(b * ops.inv2[:, None, None] + ops.sh2[:, None, None])
     b = b.to(dt).float()
     part = F.conv2d(b, ops.w2.float().permute(2, 3, 0, 1), padding=1)
+    state[..., c_in:c_in + growth] = part.permute(0, 2, 3, 1).to(dt)
+    return state
+
+
+def dense_layer_convs(state: torch.Tensor, c_in: int,
+                      ops: LayerOperands) -> torch.Tensor:
+    """One dense layer of any widths in place, as two ``F.conv2d`` calls:
+    the counterpart of the flax module's XLA convolutions, which the JAX
+    package runs for the widths no Pallas kernel takes (DenseNet161), not
+    of the kernel. It rounds to the state's dtype where
+    :func:`dense_layer_reference` does (the BN1 output and the bottleneck)
+    and computes in f32 between, on the state's device."""
+    dt = state.dtype
+    growth = ops.w2.shape[2]
+    x = state[..., :c_in].permute(0, 3, 1, 2).float()
+    h = torch.relu(x * ops.inv1[:, None, None] + ops.sh1[:, None, None])
+    b = F.conv2d(h.to(dt).float(), ops.w1.float()[:, :, None, None])
+    b = torch.relu(b * ops.inv2[:, None, None] + ops.sh2[:, None, None])
+    part = F.conv2d(b.to(dt).float(), ops.w2.float().permute(2, 3, 0, 1),
+                    padding=1)
     state[..., c_in:c_in + growth] = part.permute(0, 2, 3, 1).to(dt)
     return state
 
@@ -204,13 +231,18 @@ def _tiles(batch: int, height: int, width: int) -> int:
     return batch * -(-height // 8) * -(-width // 8)
 
 
-def dense_layer_route(batch: int, height: int, width: int,
-                      c_in: int) -> tuple[str, int | None]:
-    """``(variant, cluster size)`` that ``dense_layer`` launches for a
-    (batch, height, width) state at ``c_in``; the size is None unless the
-    variant is ``"cluster"``. Maps of side >= 64 go to the persistent
-    kernel; smaller ones follow ``SMALL_MAP_ROUTES``. A c_in past the
-    persistent kernel's budget goes to the tile kernel."""
+def dense_layer_route(batch: int, height: int, width: int, c_in: int,
+                      bottleneck: int = BOTTLENECK,
+                      growth: int = GROWTH) -> tuple[str, int | None]:
+    """``(variant, cluster size)`` that ``dense_layer`` runs for a (batch,
+    height, width) state at ``c_in``; the size is None unless the variant is
+    ``"cluster"``. Widths other than (``BOTTLENECK``, ``GROWTH``), which no
+    TPU kernel computes, go to ``"convs"`` (:func:`dense_layer_convs`).
+    Maps of side >= 64 go to the persistent kernel; smaller ones follow
+    ``SMALL_MAP_ROUTES``. A c_in past the persistent kernel's budget goes
+    to the tile kernel."""
+    if (bottleneck, growth) != (BOTTLENECK, GROWTH):
+        return "convs", None
     if min(height, width) >= PERSISTENT_MIN_SIDE:
         variant, cluster = "persistent", None
     else:
@@ -234,7 +266,8 @@ def dense_layer_variant(batch: int, height: int, width: int, c_in: int) -> str:
     return dense_layer_route(batch, height, width, c_in)[0]
 
 
-VARIANTS = ("persistent", "tile", "cluster")
+VARIANTS = ("persistent", "tile", "cluster")  # the dense-layer kernels
+ROUTES = (*VARIANTS, "convs")
 _LIBRARIES = {"tile": "dense_layer", "persistent": "dense_layer_persistent",
               "cluster": "dense_layer_cluster"}
 
@@ -265,7 +298,8 @@ def dense_layer(state: torch.Tensor, c_in: int, ops: LayerOperands,
     block state, writes its growth part to ``[c_in, c_in + G)``; returns
     ``state``. CUDA tensors go through the kernel that ``variant`` names
     (``"persistent"``, ``"tile"`` or ``"cluster"``, with ``cluster`` CTAs per
-    tile; by default :func:`dense_layer_route`'s choice); CPU tensors
+    tile; by default :func:`dense_layer_route`'s choice, which is
+    :func:`dense_layer_convs` for widths no kernel takes); CPU tensors
     through :func:`dense_layer_reference`, whatever the variant."""
     if variant is not None and variant not in VARIANTS:
         raise ValueError(f"dense_layer variant must be one of {VARIANTS}, "
@@ -274,11 +308,16 @@ def dense_layer(state: torch.Tensor, c_in: int, ops: LayerOperands,
         return dense_layer_reference(state, c_in, ops)
     if state.device.type != "cuda":
         raise ValueError(f"dense_layer runs on cuda or cpu, not {state.device}")
-    _check_kernel_args(state, c_in, ops)
     B, H, W, C = state.shape
     if variant is None:
-        variant, routed = dense_layer_route(B, H, W, c_in)
+        variant, routed = dense_layer_route(B, H, W, c_in, ops.w1.shape[0],
+                                            ops.w2.shape[2])
         cluster = cluster or routed
+        if variant == "convs":
+            dense_layer_convs(state, c_in, ops)
+            dense_layer.variant_launches["convs"] += 1
+            return state
+    _check_kernel_args(state, c_in, ops)
     args = [state.data_ptr(), ops.inv1.data_ptr(), ops.sh1.data_ptr(),
             ops.w1.data_ptr(), ops.inv2.data_ptr(), ops.sh2.data_ptr(),
             ops.w2.data_ptr(), B, H, W, C, c_in, BOTTLENECK, GROWTH]
@@ -301,8 +340,9 @@ def dense_layer(state: torch.Tensor, c_in: int, ops: LayerOperands,
 
 
 # kernel launches, so a run can show it took the kernels, and which one
+# ("convs" counts the layers routed to dense_layer_convs, no kernel launch)
 dense_layer.launches = 0
-dense_layer.variant_launches = dict.fromkeys(VARIANTS, 0)
+dense_layer.variant_launches = dict.fromkeys(ROUTES, 0)
 
 
 def _bn_relu(x, inv_shift, dtype):

@@ -3,34 +3,46 @@
 Counterpart of ``tennis_tpu/ops/pallas/gru.py``. The input projection of the
 whole sequence is one large matmul outside the kernel (the cuDNN trick, as
 in ``RNNLayer``); what remains is the strictly sequential (B, H) x (H, 3H)
-recurrence, which ``csrc/gru_recurrence.cu`` runs for all T steps in one
-launch: a cluster of 8 CTAs per chunk of up to 8 batch rows, each CTA
-keeping its 3H/8 columns of Wh in shared memory and exchanging the new
-hidden state through distributed shared memory once per step.
+recurrence, which one launch runs for all T steps. Two kernels compute it:
 
-Beside the kernel sits its plain PyTorch version,
-``gru_recurrence_reference``. ``gru_recurrence`` takes the plain version only
-for tensors on the CPU; for CUDA tensors it launches the kernel or raises.
-The kernel is forward-only, like the TPU one: with a gradient required it
-raises.
+- ``"async"``, ``csrc/gru_recurrence_async.cu``: a cluster of 8 or 16 CTAs
+  per chunk of up to 8 batch rows, each thread keeping its share of Wh in
+  registers (the rest in shared memory), the new hidden state sent to every
+  CTA with ``st.async`` and awaited on an mbarrier; no cluster barrier
+  inside the loop. It takes H up to 512 (``gru_plan``).
+- ``"barrier"``, ``csrc/gru_recurrence.cu``: a cluster of 8 CTAs, Wh in
+  shared memory, one cluster barrier a step; H up to 368. Kept for the A/B.
+
+``gru_recurrence`` routes each (T, B, H) to the variant the card measured
+fastest (``gru_route``). Beside the kernels sits their plain PyTorch
+version, ``gru_recurrence_reference``. ``gru_recurrence`` takes the plain
+version only for tensors on the CPU; for CUDA tensors it launches a kernel
+or raises. The kernels are forward-only, like the TPU one: with a gradient
+required they raise.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
+SMEM_LIMIT = 232448    # 227 KiB: the most dynamic shared memory a CTA can use
+MAX_HIDDEN = 512       # the widest H any variant takes
+VARIANTS = ("barrier", "async")
+
+# "barrier" (csrc/gru_recurrence.cu)
 CLUSTER = 8            # CTAs per cluster (csrc kCluster)
 MAX_THREADS = 384      # threads per CTA (csrc kMaxThreads)
 MAX_ROWS = 8           # batch rows per cluster (csrc kMaxRows)
-SMEM_LIMIT = 232448    # 227 KiB: the most dynamic shared memory a CTA can use
 
 
 def _split(H: int, B: int) -> tuple[int, int]:
-    """(S, R): segments of each dot product and batch rows per cluster.
-    S is the largest power of two with 3H/8 * S <= 384 threads and H / S a
-    multiple of 4; R = min(8, 3S, B) keeps every (row, unit) pair on its own
-    thread."""
+    """(S, R) of the barrier kernel: segments of each dot product and batch
+    rows per cluster. S is the largest power of two with 3H/8 * S <= 384
+    threads and H / S a multiple of 4; R = min(8, 3S, B) keeps every (row,
+    unit) pair on its own thread."""
     J = 3 * (H // CLUSTER)
     S = 1
     while J * S * 2 <= MAX_THREADS and H % (8 * S) == 0:
@@ -43,19 +55,123 @@ def _smem_bytes(H: int, S: int, R: int) -> int:
     return 4 * (H * J + 2 * R * H + S * R * J)
 
 
-def gru_fits_smem(T: int, B: int, H: int) -> bool:
-    """Whether the kernel takes hidden size H: H a multiple of 8, and one
-    CTA's 3H/8 columns of Wh (3H/8 * H * 4 bytes) plus its double-buffered
-    h and partial sums fit the H100's 227 KiB of shared memory: up to
-    H = 368 at any batch (256 is the 0102 width); H = 512 would need a
-    16-CTA cluster or a kernel that streams Wh. T does not count: gates and
-    outputs stream from device memory. B counts only up to the 8 rows one
-    cluster holds; further rows go to further clusters."""
-    del T
+def barrier_fits(H: int, B: int) -> bool:
+    """Whether the barrier kernel takes hidden size H: H a multiple of 8,
+    and one CTA's 3H/8 columns of Wh plus its double-buffered h and partial
+    sums in 227 KiB of shared memory (up to H = 368 at any batch)."""
     if H < CLUSTER or H % CLUSTER:
         return False
-    S, R = _split(H, max(B, 1))
-    return _smem_bytes(H, S, R) <= SMEM_LIMIT
+    return _smem_bytes(H, *_split(H, max(B, 1))) <= SMEM_LIMIT
+
+
+# "async" (csrc/gru_recurrence_async.cu), mirrored: constants of the source
+# C, template instances, in the order gru_plan prefers them: 16 CTAs were
+# the faster at every shape chip_smoke.py measures (PERF.md)
+ASYNC_CLUSTERS = (16, 8)
+ASYNC_MAX_THREADS = 256    # kMaxThreads
+ASYNC_MAX_ROWS = 8         # kMaxRows
+REG_ROWS = 32              # kRegL: rows of each column a thread keeps in registers
+STATIC_SMEM = 64           # the launcher's allowance for the two mbarriers
+
+
+class GruPlan(NamedTuple):
+    """The async kernel's partition of one (H, B): ``cluster`` CTAs of
+    ``threads`` = ``units`` x ``segments`` threads per chunk of ``rows``
+    batch rows; thread (u, s) sums rows [s L, (s + 1) L) of the r, z and n
+    columns of its unit, L = H / segments: ``reg_weights`` of those 3L
+    weights from registers, ``smem_weights`` from shared memory.
+    ``smem_bytes`` is the CTA's dynamic shared memory."""
+    cluster: int
+    units: int
+    segments: int
+    rows: int
+    threads: int
+    reg_weights: int
+    smem_weights: int
+    smem_bytes: int
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+@functools.lru_cache(maxsize=256)
+def _async_plan(H: int, B: int, C: int) -> GruPlan | None:
+    if H <= 0 or H > MAX_HIDDEN or H % C:
+        return None
+    U = H // C
+    # S: the largest power of two with U S threads and L = H / S a row count
+    # the source takes (8, 16, or a multiple of 4 from REG_ROWS up)
+    S = next((s for s in (1 << i for i in range(8, -1, -1))
+              if U * s <= ASYNC_MAX_THREADS and H % s == 0
+              and (H // s in (8, 16) or H // s >= REG_ROWS and H // s % 4 == 0)),
+             None)
+    if S is None:
+        return None
+    # rows per cluster: a power of two (a template argument), at most S so
+    # that every (row, unit) pair has a gate thread
+    R = min(1 << (min(B, ASYNC_MAX_ROWS) - 1).bit_length(), S)
+    L = H // S
+    reg_l = min(L, REG_ROWS)
+    tail = 3 * (L - reg_l)
+    floats = 2 * R * H + _round4(S * R * 3 * U) + _round4(R * U) + tail * U * S
+    smem = 4 * floats
+    if smem > SMEM_LIMIT - STATIC_SMEM:
+        return None
+    return GruPlan(C, U, S, R, U * S, 3 * reg_l, tail, smem)
+
+
+def gru_plan(H: int, B: int, cluster: int | None = None) -> GruPlan | None:
+    """The async kernel's partition at hidden size H and batch B, or None
+    where it takes none (H past 512, H not a multiple of the cluster size,
+    or a slice of Wh past the registers and 227 KiB of shared memory). By
+    default the cluster size is 16, else 8 (an H that is a multiple of 8
+    but not of 16)."""
+    if cluster is not None and cluster not in ASYNC_CLUSTERS:
+        return None
+    for C in (cluster,) if cluster else ASYNC_CLUSTERS:
+        plan = _async_plan(H, max(B, 1), C)
+        if plan is not None:
+            return plan
+    return None
+
+
+def gru_partition(H: int, plan: GruPlan):
+    """What each thread of the async kernel sums, as the source computes it:
+    ``[(rank, u, s, column of Wh, first row, rows in registers, rows in
+    shared memory)]`` for every CTA ``rank``, thread (u, s) and each of its
+    three columns."""
+    U, S = plan.units, plan.segments
+    L = H // S
+    return [(rank, u, s, g * H + rank * U + u, s * L, plan.reg_weights // 3,
+             plan.smem_weights // 3)
+            for rank in range(plan.cluster) for s in range(S)
+            for u in range(U) for g in range(3)]
+
+
+def gru_fits_smem(T: int, B: int, H: int) -> bool:
+    """Whether a kernel takes hidden size H: up to 512 (the async kernel,
+    ``gru_plan``), or up to 368 for the barrier kernel. T does not count:
+    gates and outputs stream from device memory. B counts only up to the 8
+    rows one cluster holds; further rows go to further clusters."""
+    del T
+    return gru_plan(H, B) is not None or barrier_fits(H, B)
+
+
+# Device ms measured by chip_smoke.py on an H100 80GB HBM3 at 700 W
+# (PERF.md): barrier / async at 16 CTAs / async at 8 CTAs.
+#   T 128, B 4, H 256 (the 0102 encoder):      0.637 / 0.183 / 0.189
+#   the same at /caption lengths 21/30/104/69: 0.630 / 0.150 / 0.156
+#   T 128, B 32, H 256:                        1.059 / 0.263 / 0.309
+#   T 128, B 4, H 128:                         0.268 / 0.129 / 0.138
+#   T 1, B 4, H 256:                           0.028 / 0.0054 / 0.0056
+#   T 128, B 4, H 512:                         -     / 0.374 / -
+def gru_route(T: int, B: int, H: int) -> str:
+    """The variant ``gru_recurrence`` launches by default: the async kernel
+    wherever it takes H (the faster at every shape measured, above), with
+    ``gru_plan``'s cluster size; else the barrier kernel."""
+    del T
+    return "async" if gru_plan(H, B) is not None else "barrier"
 
 
 def gru_recurrence_reference(gates_x, h0, wh, bh, valid_length=None):
@@ -111,41 +227,43 @@ def _check_kernel_args(gates_x, h0, wh, bh, valid_length):
             f"h0 {tuple(h0.shape)}, wh {tuple(wh.shape)}, bh "
             f"{tuple(bh.shape)}, valid_length {tuple(valid_length.shape)} "
             f"do not fit (T, B, 3H), (B, H), (H, 3H), (3H,), (B,)")
-    if not gru_fits_smem(T, B, H):
-        need = _smem_bytes(H, *_split(H, B)) if H % CLUSTER == 0 else None
-        raise ValueError(
-            f"gru_recurrence kernel: hidden size {H} is beyond its shared-"
-            f"memory budget (H a multiple of {CLUSTER}, and {3 * H // 8} "
-            f"columns of Wh plus the h buffers in {SMEM_LIMIT} B per CTA; "
-            f"this H needs {need} B); a wider H needs a kernel that streams "
-            f"Wh")
     if gates_x.stride(2) != 1 or not h0.is_contiguous() or \
             not bh.is_contiguous():
         raise ValueError("gru_recurrence kernel takes gates_x with a unit "
                          "stride on the gate axis and contiguous h0 and bh")
 
 
-def _launcher():
+def _launcher(variant):
     from tennis_torch.ops._build import load_library
 
-    fn = load_library("gru_recurrence").gru_recurrence_launch
+    name = {"barrier": "gru_recurrence", "async": "gru_recurrence_async"}[variant]
+    fn = getattr(load_library(name), f"{name}_launch")
     if fn.argtypes is None:
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [p, ll, ll, p, p, ll, ll, p, p, p, ll, ll, p,
-                       i, i, i, i, i, p]
+        # ... T, B, H, then S, R (barrier) or C, S, R (async)
+        n_int = 5 if variant == "barrier" else 6
+        fn.argtypes = [p, ll, ll, p, p, ll, ll, p, p, p, ll, ll, p] + \
+            [i] * n_int + [p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def gru_recurrence(gates_x, h0, wh, bh, valid_length=None):
+def gru_recurrence(gates_x, h0, wh, bh, valid_length=None,
+                   variant: str | None = None, cluster: int | None = None):
     """GRU recurrence over precomputed input gates (see
     :func:`gru_recurrence_reference` for the function). CUDA tensors go
-    through the kernel; CPU tensors through the plain version.
+    through the kernel that ``variant`` names (``"async"`` or
+    ``"barrier"``; by default :func:`gru_route`'s choice), the async one
+    with ``cluster`` CTAs per chunk of rows (by default :func:`gru_plan`'s);
+    CPU tensors through the plain version, whatever the variant.
 
     Returns (ys (T, B, H), h_final (B, H)) f32. On the card ``ys`` is a
     (T, B, H) view of a batch-major (B, T, H) buffer, so ``ys.transpose(0,
     1)`` is contiguous.
     """
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError(f"gru_recurrence variant must be one of {VARIANTS}, "
+                         f"not {variant!r}")
     if gates_x.device.type == "cpu":
         return gru_recurrence_reference(gates_x, h0, wh, bh, valid_length)
     if gates_x.device.type != "cuda":
@@ -159,26 +277,47 @@ def gru_recurrence(gates_x, h0, wh, bh, valid_length=None):
     valid_length = valid_length.to(device=gates_x.device,
                                    dtype=torch.int32).contiguous()
     _check_kernel_args(gates_x, h0, wh, bh, valid_length)
+    variant = variant or gru_route(T, B, H)
+    if variant == "async":
+        plan = gru_plan(H, B, cluster)
+        if plan is None:
+            raise ValueError(
+                f"gru_recurrence async kernel: hidden size {H} is beyond its "
+                f"register and shared-memory budget (H up to {MAX_HIDDEN}, a "
+                f"multiple of the cluster size {cluster or ASYNC_CLUSTERS}); "
+                f"a wider H needs a kernel that streams Wh")
+        partition = (plan.cluster, plan.segments, plan.rows)
+    else:
+        if not barrier_fits(H, B):
+            need = _smem_bytes(H, *_split(H, B)) if H % CLUSTER == 0 else None
+            raise ValueError(
+                f"gru_recurrence barrier kernel: hidden size {H} is beyond "
+                f"its shared-memory budget (H a multiple of {CLUSTER}, and "
+                f"{3 * H // CLUSTER} columns of Wh plus the h buffers in "
+                f"{SMEM_LIMIT} B per CTA; this H needs {need} B)")
+        partition = _split(H, B)
     ys = torch.empty((B, T, H), dtype=torch.float32,
                      device=gates_x.device).transpose(0, 1)
     h_final = torch.empty((B, H), dtype=torch.float32, device=gates_x.device)
-    S, R = _split(H, B)
     stream = torch.cuda.current_stream(gates_x.device).cuda_stream
     with torch.cuda.device(gates_x.device):
-        err = _launcher()(
+        err = _launcher(variant)(
             gates_x.data_ptr(), gates_x.stride(0), gates_x.stride(1),
             h0.data_ptr(), wh.data_ptr(), wh.stride(0), wh.stride(1),
             bh.data_ptr(), valid_length.data_ptr(),
             ys.data_ptr(), ys.stride(0), ys.stride(1), h_final.data_ptr(),
-            T, B, H, S, R, stream)
+            T, B, H, *partition, stream)
     if err:
-        raise RuntimeError(f"gru_recurrence kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"gru_recurrence {variant} kernel launch failed: "
+                           f"CUDA error {err}")
     gru_recurrence.launches += 1
+    gru_recurrence.variant_launches[variant] += 1
     return ys, h_final
 
 
-gru_recurrence.launches = 0  # kernel launches, so a run can show it took the kernel
+# kernel launches, so a run can show it took a kernel, and which one
+gru_recurrence.launches = 0
+gru_recurrence.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 def gru_sequence(x, h0, wx, wh, bx, bh, valid_length=None):

@@ -1,7 +1,8 @@
 """The port on a CUDA card: the three dense-layer kernels (tile, persistent
 and cluster) against their plain version at small and ragged shapes, the
 wrapper's refusals and choice of kernel, DenseNet forwards through the
-kernels, and the GRU kernel. Marked ``cuda``; each test skips without a card. On a
+kernels (DenseNet161's widths through ``dense_layer_convs``), and the two GRU
+kernels. Marked ``cuda``; each test skips without a card. On a
 machine with one, run them without the JAX conftest:
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q``."""
 import pytest
@@ -215,7 +216,7 @@ def test_densenet_forward_takes_both_kernels(dev):
         before = dict(db.dense_layer.variant_launches)
         got = model(x).float()
         assert db.dense_layer.variant_launches == {
-            v: before[v] + routed[v] for v in db.VARIANTS}
+            v: before[v] + routed.get(v, 0) for v in db.ROUTES}
         want = db.densenet_features(model.spec, model.operands(), x, model.dtype,
                                     layer=db.dense_layer_reference).float()
     err = (got - want).abs().max() / want.abs().max()
@@ -257,16 +258,20 @@ def _gru_inputs(dev, T, B, H, lengths, seed=0):
                                                device=dev)), gru
 
 
+@pytest.mark.parametrize("variant", [None, "barrier", "async"])
 @pytest.mark.parametrize("T,B,H,lengths", [
     (5, 3, 32, [5, 0, 2]), (128, 4, 256, [128, 100, 37, 1]),
     (1, 1, 256, [1]), (6, 37, 64, [i % 7 for i in range(37)])])
-def test_gru_kernel_matches_plain(dev, T, B, H, lengths):
+def test_gru_kernel_matches_plain(dev, T, B, H, lengths, variant):
     args, gru = _gru_inputs(dev, T, B, H, lengths)
     launches = gru.gru_recurrence.launches
-    ys, h = gru.gru_recurrence(*args)
+    by_variant = dict(gru.gru_recurrence.variant_launches)
+    ys, h = gru.gru_recurrence(*args, variant=variant)
     ys_ref, h_ref = gru.gru_recurrence_reference(*args)
     torch.cuda.synchronize()
     assert gru.gru_recurrence.launches == launches + 1
+    taken = variant or gru.gru_route(T, B, H)
+    assert gru.gru_recurrence.variant_launches[taken] == by_variant[taken] + 1
     assert ys.shape == (T, B, H) and h.shape == (B, H)
     torch.testing.assert_close(ys, ys_ref, rtol=0, atol=GRU_TOL)
     torch.testing.assert_close(h, h_ref, rtol=0, atol=GRU_TOL)
@@ -282,8 +287,8 @@ def test_gru_kernel_refusals(dev):
     gx, h0, wh, bh, vl = args
     with pytest.raises(TypeError):
         gru.gru_recurrence(gx.double(), h0, wh, bh, vl)
-    big, _ = _gru_inputs(dev, 2, 2, 512, [2, 2])
-    assert not gru.gru_fits_smem(2, 2, 512)
+    big, _ = _gru_inputs(dev, 2, 2, 520, [2, 2])
+    assert not gru.gru_fits_smem(2, 2, 520)
     with pytest.raises(ValueError, match="shared-memory budget"):
         gru.gru_recurrence(*big)
     with pytest.raises(RuntimeError, match="forward-only"):
@@ -310,3 +315,122 @@ def test_rnn_layer_takes_the_kernel(dev):
     (hf_ref, hb_ref), out_ref = cpu(x.cpu(), vl.cpu())
     torch.testing.assert_close(out.cpu(), out_ref, rtol=0, atol=GRU_TOL)
     torch.testing.assert_close(hb.cpu(), hb_ref, rtol=0, atol=GRU_TOL)
+
+
+def _lengths(T, B, mode):
+    """"mixed": 0, 1, T // 2 and T; "short": every row ends before T."""
+    if mode == "mixed":
+        return [(T, 0, 1, T // 2)[i % 4] for i in range(B)]
+    return [(i * 7) % T for i in range(B)] if T > 1 else [0] * B
+
+
+@pytest.mark.parametrize("mode", ["mixed", "short"])
+@pytest.mark.parametrize("T", [1, 128])
+@pytest.mark.parametrize("B", [1, 4, 32])
+@pytest.mark.parametrize("H", [128, 256, 512])
+def test_gru_async_matches_plain(dev, H, B, T, mode):
+    """The async kernel within 1e-4 of the plain version, zeros and a frozen
+    carry past each length, including batches whose rows all end before T."""
+    lengths = _lengths(T, B, mode)
+    args, gru = _gru_inputs(dev, T, B, H, lengths, seed=H + B + T)
+    before = dict(gru.gru_recurrence.variant_launches)
+    ys, h = gru.gru_recurrence(*args, variant="async")
+    ys_ref, h_ref = gru.gru_recurrence_reference(*args)
+    torch.cuda.synchronize()
+    assert gru.gru_recurrence.variant_launches == {
+        **before, "async": before["async"] + 1}
+    torch.testing.assert_close(ys, ys_ref, rtol=0, atol=GRU_TOL)
+    torch.testing.assert_close(h, h_ref, rtol=0, atol=GRU_TOL)
+    for b, n in enumerate(lengths):
+        assert not ys[n:, b].any()
+        if n == 0:
+            torch.testing.assert_close(h[b], args[1][b], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_gru_async_is_deterministic(dev, cluster):
+    """Sums run in a fixed order: two launches agree bit for bit, at either
+    cluster size, and the two cluster sizes agree with the plain version."""
+    args, gru = _gru_inputs(dev, 128, 4, 256, [128, 100, 37, 1])
+    a = gru.gru_recurrence(*args, variant="async", cluster=cluster)
+    b = gru.gru_recurrence(*args, variant="async", cluster=cluster)
+    ref = gru.gru_recurrence_reference(*args)
+    torch.cuda.synchronize()
+    for x, y, r in zip(a, b, ref):
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x, r, rtol=0, atol=GRU_TOL)
+
+
+def test_gru_plan_mirror_and_refusals(dev):
+    """The launcher's shared-memory budget equals gru_plan's, it refuses
+    what gru_plan refuses, and the wrapper raises before any launch."""
+    import ctypes
+
+    from tennis_torch.ops import gru
+    from tennis_torch.ops._build import load_library
+
+    lib = load_library("gru_recurrence_async")
+    smem = lib.gru_recurrence_async_smem_bytes
+    smem.argtypes = [ctypes.c_int] * 4
+    smem.restype = ctypes.c_longlong
+    for H in (8, 32, 64, 128, 256, 368, 400, 480, 512):
+        for B in (1, 4, 32):
+            for C in gru.ASYNC_CLUSTERS:
+                plan = gru.gru_plan(H, B, C)
+                if plan is None:
+                    continue
+                assert smem(H, C, plan.segments, plan.rows) == plan.smem_bytes
+    assert gru.gru_plan(512, 4, 8) is None and smem(512, 8, 2, 4) == -1
+    assert smem(520, 16, 4, 4) == smem(256, 4, 4, 4) == smem(256, 8, 4, 9) == -1
+    args, _ = _gru_inputs(dev, 4, 4, 512, [4, 3, 2, 1])
+    before = dict(gru.gru_recurrence.variant_launches)
+    with pytest.raises(ValueError, match="budget"):
+        gru.gru_recurrence(*args, variant="async", cluster=8)
+    with pytest.raises(ValueError, match="budget"):
+        gru.gru_recurrence(*args, variant="barrier")
+    assert gru.gru_recurrence.variant_launches == before
+
+
+def test_rnn_layer_h512_takes_the_kernel(dev):
+    """A GRU layer of 512 (the 0102 captioner at --num_hidden 512) runs on
+    the card through the async kernel."""
+    from tennis_torch.ops import gru
+    from tennis_torch.ops.rnn import RNNLayer
+
+    layer = RNNLayer("gru", 64, 512, generator=torch.Generator().manual_seed(0))
+    layer = layer.to(dev)
+    x = torch.randn(4, 20, 64, generator=torch.Generator().manual_seed(1)).to(dev)
+    vl = torch.tensor([20, 13, 5, 1], device=dev)
+    with torch.inference_mode():
+        before = dict(gru.gru_recurrence.variant_launches)
+        h, out = layer(x, vl)
+        assert gru.gru_recurrence.variant_launches == {
+            **before, "async": before["async"] + 1}
+    h_ref, out_ref = layer.cpu()(x.cpu(), vl.cpu())
+    torch.testing.assert_close(out.cpu(), out_ref, rtol=0, atol=GRU_TOL)
+    torch.testing.assert_close(h.cpu(), h_ref, rtol=0, atol=GRU_TOL)
+
+
+def test_densenet161_forward_takes_no_dense_kernel(dev):
+    """DenseNet161's widths (bottleneck 192, growth 48) on the card: every
+    layer through dense_layer_convs, no dense-kernel launch, and the
+    plain-version forward agrees."""
+    gen = torch.Generator().manual_seed(0)
+    spec = DenseNetSpec((2, 3, 2), 48, 96)
+    model = DenseNet(spec, generator=gen).to(dev).eval()
+    model.fold()
+    x = torch.randn(2, 64, 64, 3, generator=gen).to(dev)
+    with torch.inference_mode():
+        launches = db.dense_layer.launches
+        before = dict(db.dense_layer.variant_launches)
+        got = model(x).float()
+        assert db.dense_layer.launches == launches
+        assert db.dense_layer.variant_launches == {
+            **before, "convs": before["convs"] + 7}
+        want = db.densenet_features(model.spec, model.operands(), x, model.dtype,
+                                    layer=db.dense_layer_reference).float()
+    err = (got - want).abs().max() / want.abs().max()
+    assert err <= 3e-2, err.item()
+    with pytest.raises(ValueError, match="bottleneck"):
+        state = torch.zeros(1, 8, 8, 192, dtype=torch.bfloat16, device=dev)
+        db.dense_layer(state, 96, model.operands()["layers"][0][0], "cluster")
