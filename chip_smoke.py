@@ -21,16 +21,30 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    layer shape of DenseNet121/169/201 at 512^2 (c_in in steps of 64) and
    the ragged maps, at batch 1 and 8, each kernel and cluster size timed by
    device time in three rounds of alternating order, the fastest beside the
-   wrapper's route. Then the whole 58-layer stack of one batch-8 forward,
+   wrapper's route, and the same for DenseNet121's 32^2, 16^2 and 7x7
+   maps at batch 64. Then the whole 58-layer stack of one batch-8 forward,
    every layer through every kernel against the plain version, and block by
    block: the wrapper's choice, each kernel alone, the plain version and
-   cuDNN;
+   cuDNN; and the stack at batch 64 (``[stack64]``), every layer through
+   the route's kernel against the plain version, block by block beside
+   cuDNN and the bytes bound;
 4. classifier path: ``FrameModel(DenseNet121)`` at 512^2 with seeded random
    weights in flax naming, loaded through ``bridge.load_flax``, served by
    ``serve.make_service``: 16 concurrent frames through its ``Batcher``,
    ``GET /healthz`` over HTTP, probabilities checked, 58 kernel launches per
    batch split between the kernels as the wrapper's route names them,
    batch-8 logits against the plain-version forward;
+4b. extraction (``[extract]``): ``train.save_features`` over an in-memory
+   split of 32 x 64 + 37 frames at 512^2 (256 distinct seeded frames; no
+   JPEG is decoded, the card machine may lack cv2), through ``DataLoader``,
+   the pinned ``prefetch_to_device`` and the kernels to .npy files: 2085
+   files of f32 (4096,), 58 launches a batch split as the route names them
+   for batch 64 and 37, the first and the ragged batch against the
+   plain-version features; frames/s, device busy and idle share, the
+   prefetch and writer stats, peak memory. ``[evaluate]``: the same split
+   through ``eval_iter`` and the metric set, PRF1 against the plain
+   version's, frames/s; the ``--temp_pool mean`` wrap through the backbone
+   at 2 clips x 8 frames (58 launches, one forward);
 5. GRU kernels vs plain version: ``gru_recurrence`` against
    ``gru_recurrence_reference`` in f32, both kernels (``"async"`` at every
    cluster size that takes the shape, and ``"barrier"`` where it fits), at
@@ -118,6 +132,14 @@ N_CAPTIONS = 8
 # DenseNet161 (bottleneck 192, growth 48) at the 224^2 of its ImageNet config
 D161_SHAPE = 224
 D161_BATCH = 2
+# feature extraction and evaluation: the drivers' default --batch_size over
+# an in-memory split of 32 full batches and a ragged one, 256 distinct
+# frames indexed modulo; the pooled wrap at batch 2 x window 8
+EXTRACT_BATCH = 64
+EXTRACT_FRAMES = 32 * EXTRACT_BATCH + 37
+EXTRACT_DISTINCT = 256
+PROFILE_BATCHES = 4
+POOL_BATCH, POOL_WINDOW = 2, 8
 
 # (name, T, batch, H, valid lengths): the 0102 serving shape, the lengths of
 # the measured /caption batch (all end before T), --num_hidden 512, the
@@ -248,22 +270,30 @@ def bound(flops, nbytes):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def random_layer(gen, batch, side, c_in, c_final, dev):
+def _rand(gen, dev, *shape, lo=None, hi=None, std=1.0):
+    t = torch.empty(shape, device=dev)
+    if lo is not None:
+        return t.uniform_(lo, hi, generator=gen)
+    return t.normal_(0.0, std, generator=gen)
+
+
+def random_ops(gen, c_in, dev):
+    """Seeded operands of one dense layer at ``c_in``."""
     from tennis_torch.ops.dense_block import LayerOperands
 
-    def rand(*shape, lo=None, hi=None, std=1.0):
-        t = torch.empty(shape, device=dev)
-        if lo is not None:
-            return t.uniform_(lo, hi, generator=gen)
-        return t.normal_(0.0, std, generator=gen)
+    def rand(*shape, **kw):
+        return _rand(gen, dev, *shape, **kw)
 
-    state = rand(batch, side, side, c_final).to(torch.bfloat16)
-    ops = LayerOperands(
+    return LayerOperands(
         rand(c_in, lo=0.5, hi=1.5), rand(c_in, std=0.5),
         rand(128, c_in, std=c_in ** -0.5).to(torch.bfloat16),
         rand(128, lo=0.5, hi=1.5), rand(128, std=0.5),
         rand(3, 3, 32, 128, std=1152 ** -0.5).to(torch.bfloat16))
-    return state, ops
+
+
+def random_layer(gen, batch, side, c_in, c_final, dev):
+    state = _rand(gen, dev, batch, side, side, c_final).to(torch.bfloat16)
+    return state, random_ops(gen, c_in, dev)
 
 
 def library_convs(state, c_in, ops):
@@ -343,14 +373,19 @@ def kernel_phase():
 def route_shapes():
     """(batch, side, c_in) of every small-map layer of DenseNet121/169/201
     at 512^2 (c_in in steps of 64, and each block's last c_in), and of the
-    ragged 14x14 and 7x7 maps of DenseNet121 at 224^2, at batch 1 and 8."""
+    ragged 14x14 and 7x7 maps of DenseNet121 at 224^2, at batch 1 and 8;
+    and at the extraction batch (64), DenseNet121's 32^2 and 16^2 maps at
+    512^2 and its 7x7 map at 224^2."""
     # side: the blocks' first c_in in steps of 64 to the last of DenseNet201,
     # and the last c_in of DenseNet121, 169 and 201
     c_ins = {32: sorted({*range(256, 1761, 64), 992, 1248, 1760}),
              16: sorted({*range(512, 1889, 64), 992, 1632, 1888}),
              14: [256, 608, 992], 7: [512, 736, 992]}
+    d121 = {32: [*range(256, 993, 64), 992], 16: [*range(512, 993, 64), 992],
+            7: [*range(512, 993, 64), 992]}
     return [(batch, side, c) for batch in (8, 1) for side, cs in c_ins.items()
-            for c in cs]
+            for c in cs] + [(EXTRACT_BATCH, side, c)
+                            for side, cs in d121.items() for c in cs]
 
 
 def route_phase():
@@ -414,19 +449,21 @@ def route_phase():
             sums[i, key] = sums.get((i, key), 0.0) + ms
         for (i, key), total in sums.items():
             times[i].setdefault(key, []).append(total / ROUTE_REPS)
-    agree = 0
+    agree = {}  # batch -> [shapes where the route is the fastest, shapes]
     for (batch, side, c_in, _, _, _), t in zip(cases, times):
         med = {k: statistics.median(v) for k, v in t.items()}
         fastest = min(med, key=med.get)
         variant, size = db.dense_layer_route(batch, side, side, c_in)
         routed = variant if size is None else f"cluster{size}"
-        agree += routed == fastest
+        tally = agree.setdefault(batch, [0, 0])
+        tally[0] += routed == fastest
+        tally[1] += 1
         log("route", batch=batch, side=side, c_in=c_in, device_ms=med,
             spread=[min(min(v) / med[k] for k, v in t.items()),
                     max(max(v) / med[k] for k, v in t.items())],
             fastest=fastest, routed=routed,
             routed_over_fastest=med[routed] / med[fastest])
-    return agree, len(cases)
+    return agree
 
 
 def stack_phase():
@@ -542,6 +579,72 @@ def stack_phase():
     return rows, layer_rows, routed_device
 
 
+def stack64_phase():
+    """The 58 dense layers of one DenseNet121-512 forward at the extraction
+    batch (64): every layer through the route's kernel against the plain
+    version, then block by block the device ms of the route's kernels and
+    of cuDNN's two convolutions a layer, beside the bytes bound."""
+    from tennis_torch.ops import dense_block as db
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    batch, side, channels = EXTRACT_BATCH, DATA_SHAPE // 4, 64
+    rows, worst_rel, totals = [], 0.0, {"flops": 0, "bytes": 0}
+    for i, num_layers in enumerate((6, 12, 24, 16)):
+        c_final = channels + 32 * num_layers
+        state = _rand(gen, dev, batch, side, side, c_final).to(torch.bfloat16)
+        layers = [(channels + 32 * j, random_ops(gen, channels + 32 * j, dev))
+                  for j in range(num_layers)]
+        flops = nbytes = 0
+        variants = dict.fromkeys(db.VARIANTS, 0)
+        for c_in, ops in layers:
+            want = db.dense_layer_reference(state.clone(), c_in, ops)
+            got = db.dense_layer(state.clone(), c_in, ops)
+            torch.cuda.synchronize()
+            _, rel, _, ok = check_layer(state, got, want, c_in)
+            del want, got
+            worst_rel = max(worst_rel, rel)
+            if not ok:
+                raise SystemExit(f"dense_layer disagrees with its plain version "
+                                 f"at batch {batch}, block {i}, c_in {c_in}")
+            f, b = layer_work(batch, side, c_in)
+            flops, nbytes = flops + f, nbytes + b
+            variants[db.dense_layer_variant(batch, side, side, c_in)] += 1
+
+        def routed(state=state, layers=layers):
+            for c_in, ops in layers:
+                db.dense_layer(state, c_in, ops)
+
+        lib = [library_convs(state, c_in, ops) for c_in, ops in layers]
+        b_ms, b_by = bound(flops, nbytes)
+        row = {"block": i, "side": side, "layers": num_layers,
+               "variants": variants,
+               "device_ms": dense_device_ms(routed, num_layers),
+               "library_device_ms": all_device_ms(
+                   lambda lib=lib: [f() for f in lib]),
+               "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+               "bytes": nbytes}
+        del lib
+        log("stack64_block", batch=batch, **row)
+        rows.append(row)
+        totals["flops"] += flops
+        totals["bytes"] += nbytes
+        channels, side = c_final // 2, side // 2
+    device_ms = sum(r["device_ms"] for r in rows)
+    library_ms = sum(r["library_device_ms"] for r in rows)
+    b_ms, b_by = bound(totals["flops"], totals["bytes"])
+    variants = {v: sum(r["variants"][v] for r in rows) for v in db.VARIANTS}
+    log("stack64", layers=sum(r["layers"] for r in rows), batch=batch,
+        data_shape=DATA_SHAPE, tol=KERNEL_TOL, worst_rel_err=worst_rel,
+        launches_by_variant=variants, gflop=totals["flops"] / 1e9,
+        gbytes=totals["bytes"] / 1e9, device_ms=device_ms,
+        device_ms_per_frame=device_ms / batch, library_device_ms=library_ms,
+        bound_ms=b_ms, bound_by=b_by, roofline_share=b_ms / device_ms,
+        device_tflops=totals["flops"] / device_ms / 1e9)
+    return {"rows": rows, "device_ms": device_ms, "library_ms": library_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
 def random_flax_tree(tree, rng):
     """Redraw every leaf of a flax-named tree: kernels lecun-normal
     (truncated at 2 std), embeddings normal with variance 1/width, BN scale
@@ -573,14 +676,14 @@ def random_flax_tree(tree, rng):
     return walk(tree)
 
 
-def routed_launches(db):
+def routed_launches(db, batch=BATCH):
     """Launches of each dense-layer kernel that the route names for one
-    batch-8 DenseNet121-512 forward."""
+    DenseNet121-512 forward at ``batch``."""
     counts = dict.fromkeys(db.ROUTES, 0)
     side, channels = DATA_SHAPE // 4, 64
     for num_layers in (6, 12, 24, 16):
         for j in range(num_layers):
-            counts[db.dense_layer_variant(BATCH, side, side,
+            counts[db.dense_layer_variant(batch, side, side,
                                           channels + 32 * j)] += 1
         channels, side = (channels + 32 * num_layers) // 2, side // 2
     return counts
@@ -616,8 +719,7 @@ def main_path_phase(dev):
             results[i] = batcher.submit(frames[i], timeout=300)
 
         batches0 = batcher.batches
-        db.dense_layer.launches = 0
-        db.dense_layer.variant_launches = dict.fromkeys(db.ROUTES, 0)
+        reset_dense_counts(db)
         start = time.perf_counter()
         threads = [threading.Thread(target=request, args=(i,))
                    for i in range(N_REQUESTS)]
@@ -692,6 +794,250 @@ def main_path_phase(dev):
     if not (rel <= LOGIT_TOL and top1 and served):
         raise SystemExit("kernel forward disagrees with the plain-version forward")
     return by_variant
+
+
+class MemorySplit:
+    """An in-memory split with what the loader and ``save_features`` read of
+    a TennisSet: ``len``, ``(img, label, idx)`` items, ``save_feature_path``
+    and the split name. Item i is frame ``i % len(frames)`` (so host memory
+    stays bounded) with label ``i % 11``; ``window`` > 1 makes item i a clip
+    of that many consecutive frames."""
+
+    def __init__(self, frames, n, feat_dir, split, window=1):
+        self.frames, self.n, self.feat_dir = frames, n, feat_dir
+        self._split, self.window = split, window
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, idx):
+        k = len(self.frames)
+        if self.window == 1:
+            img = self.frames[idx % k]
+        else:
+            img = self.frames[[(idx * self.window + t) % k
+                               for t in range(self.window)]]
+        return img, idx % 11, idx
+
+    def save_feature_path(self, idx):
+        from tennis_torch.data.tennis_set import get_feature_path
+
+        return get_feature_path(self.feat_dir, self._split, int(idx))
+
+
+def reset_dense_counts(db):
+    db.dense_layer.launches = 0
+    db.dense_layer.variant_launches = dict.fromkeys(db.ROUTES, 0)
+
+
+def extraction_inputs(dev):
+    """``FrameModel(DenseNet121)`` at 512^2 with seeded random weights in
+    flax naming through ``bridge.load_flax``, and EXTRACT_DISTINCT seeded
+    uint8 frames."""
+    from tennis_torch.bridge import load_flax, to_flax
+    from tennis_torch.inference import build_frame_model
+
+    rng = np.random.default_rng(SEED + 6)
+    model = build_frame_model("DenseNet121", 11, DATA_SHAPE)
+    load_flax(model, random_flax_tree(to_flax(model), rng))
+    frames = rng.integers(0, 256, (EXTRACT_DISTINCT, DATA_SHAPE, DATA_SHAPE, 3),
+                          dtype=np.uint8)
+    return model, frames
+
+
+def plain_features(model, frames, dev):
+    """f32 backbone features of ``frames`` with every dense layer through
+    the plain version (the yardstick, never on the dump's path)."""
+    from tennis_torch.data.transforms import device_prepare
+    from tennis_torch.ops import dense_block as db
+
+    bb = model.backbone
+    with torch.inference_mode():
+        x = device_prepare(torch.from_numpy(frames).to(dev), bb.dtype)
+        return db.densenet_features(bb.spec, bb.operands(), x, bb.dtype,
+                                    layer=db.dense_layer_reference).float()
+
+
+def extract_phase(dev, model, frames):
+    """``train.save_features`` at full width: an in-memory split of
+    EXTRACT_FRAMES frames through DataLoader -> pinned prefetch_to_device ->
+    the dense-layer kernels -> .npy files under a temporary directory."""
+    import glob
+    import tempfile
+
+    from tennis_torch import train as driver
+    from tennis_torch.data.loader import DataLoader
+    from tennis_torch.inference import make_extract_features
+    from tennis_torch.ops import dense_block as db
+
+    extract = make_extract_features(model, dev)
+
+    def dump(ds):
+        loader = DataLoader(ds, EXTRACT_BATCH, num_workers=8)
+        return driver.save_features(extract, [ds], {ds._split: loader},
+                                    dev)[ds._split]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dump(MemorySplit(frames, EXTRACT_BATCH, tmp, "warmup"))
+        split = MemorySplit(frames, EXTRACT_FRAMES, tmp, "extract")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_dense_counts(db)
+        t0 = time.perf_counter()
+        report = dump(split)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = db.dense_layer.launches
+        by_variant = dict(db.dense_layer.variant_launches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+        files = glob.glob(os.path.join(tmp, "extract.mp4", "*", "*.npy"))
+        bad = [f for f in files
+               if (a := np.load(f)).dtype != np.float32 or a.shape != (FEAT_DIM,)
+               or not np.isfinite(a).all()]
+        errs = {}
+        for name, first, n in (("first", 0, EXTRACT_BATCH),
+                               ("ragged", EXTRACT_FRAMES // EXTRACT_BATCH
+                                * EXTRACT_BATCH, EXTRACT_FRAMES % EXTRACT_BATCH)):
+            idx = np.arange(first, first + n)
+            got = np.stack([np.load(split.save_feature_path(i)) for i in idx])
+            want = plain_features(model, frames[idx % EXTRACT_DISTINCT],
+                                  dev).cpu().numpy()
+            errs[name] = float(np.abs(got - want).max() / np.abs(want).max())
+
+        # device busy and idle share over PROFILE_BATCHES batches
+        small = MemorySplit(frames, PROFILE_BATCHES * EXTRACT_BATCH, tmp,
+                            "profile")
+        walls = []
+
+        def profiled():
+            t = time.perf_counter()
+            dump(small)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+
+        by_name = device_profile(profiled)
+    copy_ms = sum(v[0] for k, v in by_name.items() if k.startswith("Memcpy"))
+    busy_ms = sum(v[0] for k, v in by_name.items()
+                  if not k.startswith(("Memcpy", "Memset")))
+    full, ragged = divmod(EXTRACT_FRAMES, EXTRACT_BATCH)
+    want_counts = {v: full * n + routed_launches(db, ragged)[v]
+                   for v, n in routed_launches(db, EXTRACT_BATCH).items()}
+    ok = (len(files) == EXTRACT_FRAMES and not bad
+          and launches == 58 * (full + 1) and by_variant == want_counts
+          and all(e <= LOGIT_TOL for e in errs.values()))
+    log("extract", frames=EXTRACT_FRAMES, batch=EXTRACT_BATCH,
+        ragged_batch=ragged, data_shape=DATA_SHAPE, files=len(files),
+        bad_files=len(bad), launches=launches, launches_by_variant=by_variant,
+        routed_launches_by_variant=want_counts, wall_s=wall,
+        frames_per_s=EXTRACT_FRAMES / wall, seconds_in_dump=report["seconds"],
+        prefetch=report["prefetch"], copy_wait_s=report["copy_wait_s"],
+        write_drain_s=report["write_drain_s"], peak_mem_gib=peak_gib,
+        features_rel_err=errs, tol=LOGIT_TOL,
+        profile={"frames": PROFILE_BATCHES * EXTRACT_BATCH,
+                 "wall_ms": walls[-1], "device_busy_ms": busy_ms,
+                 "idle_share": 1 - busy_ms / walls[-1],
+                 "memcpy_ms": copy_ms,
+                 "device_ms_per_frame": busy_ms / (PROFILE_BATCHES
+                                                   * EXTRACT_BATCH),
+                 "dense_layer_ms": sum(
+                     v[0] for k, v in by_name.items()
+                     if any(n in k for n in DENSE_KERNELS.values())),
+                 "top": [[k[:60], v[0], v[1]] for k, v in sorted(
+                     by_name.items(), key=lambda kv: -kv[1][0])[:8]]},
+        ok=ok)
+    if not ok:
+        raise SystemExit("feature extraction failed its gates")
+    return by_variant
+
+
+def evaluate_phase(dev, model, frames):
+    """The in-memory split through ``eval_iter`` and the port's metric set,
+    the kernel path's PRF1 against the plain version's; then the
+    ``--temp_pool mean`` wrap through the backbone at POOL_BATCH clips of
+    POOL_WINDOW frames."""
+    from tennis_torch import train as driver
+    from tennis_torch.data.loader import DataLoader, eval_iter
+    from tennis_torch.data.tennis_set import DEFAULT_CLASSES
+    from tennis_torch.inference import make_eval_step
+    from tennis_torch.ops import dense_block as db
+
+    step = make_eval_step(model, dev)
+
+    def probs_fn(x):
+        return torch.softmax(step(x), dim=-1)
+
+    def run(ds, fn, batch):
+        rows = {}
+        for out, _, idxs in eval_iter(DataLoader(ds, batch, num_workers=8),
+                                      fn, dev):
+            rows.update(zip(idxs.tolist(), out))
+        return np.stack([rows[i] for i in range(len(ds))])
+
+    run(MemorySplit(frames, EXTRACT_BATCH, None, "warmup"), probs_fn,
+        EXTRACT_BATCH)
+    split = MemorySplit(frames, EXTRACT_FRAMES, None, "evaluate")
+    reset_dense_counts(db)
+    t0 = time.perf_counter()
+    probs = run(split, probs_fn, EXTRACT_BATCH)
+    wall = time.perf_counter() - t0
+    launches = db.dense_layer.launches
+    by_variant = dict(db.dense_layer.variant_launches)
+    labels = np.arange(EXTRACT_FRAMES) % 11
+
+    with torch.inference_mode():
+        plain = np.concatenate([
+            torch.softmax(model.head(plain_features(
+                model, frames[i:i + EXTRACT_BATCH], dev)), -1).cpu().numpy()
+            for i in range(0, EXTRACT_DISTINCT, EXTRACT_BATCH)])
+    plain = plain[np.arange(EXTRACT_FRAMES) % EXTRACT_DISTINCT]
+    disagree = int((probs.argmax(-1) != plain.argmax(-1)).sum())
+    got_m, want_m = (driver._metric_set(DEFAULT_CLASSES) for _ in range(2))
+    for m in got_m.values():
+        m.update(labels, probs)
+    for m in want_m.values():
+        m.update(labels, plain)
+    same_prf1 = got_m["prf1"].get() == want_m["prf1"].get()
+
+    # the pooled wrap through the backbone: one forward over the folded clips
+    clips = MemorySplit(frames, POOL_BATCH, None, "clips", window=POOL_WINDOW)
+    pool_step = make_eval_step(model, dev, pool="mean")
+    reset_dense_counts(db)
+    pooled = run(clips, pool_step, POOL_BATCH)
+    pool_launches = db.dense_layer.launches
+    pool_by_variant = dict(db.dense_layer.variant_launches)
+    clip_frames = np.stack([clips[i][0] for i in range(POOL_BATCH)])
+    feats = plain_features(model, clip_frames.reshape(
+        (-1,) + clip_frames.shape[2:]), dev)
+    with torch.inference_mode():
+        want_pooled = model.head(feats.reshape(POOL_BATCH, POOL_WINDOW, -1)
+                                 .to(model.dtype).mean(1)).cpu().numpy()
+    pool_rel = float(np.abs(pooled - want_pooled).max()
+                     / np.abs(want_pooled).max())
+    full, ragged = divmod(EXTRACT_FRAMES, EXTRACT_BATCH)
+    want_counts = {v: full * n + routed_launches(db, ragged)[v]
+                   for v, n in routed_launches(db, EXTRACT_BATCH).items()}
+    pool_want = routed_launches(db, POOL_BATCH * POOL_WINDOW)
+    ok = (bool(np.isfinite(probs).all()) and launches == 58 * (full + 1)
+          and by_variant == want_counts and (disagree > 0 or same_prf1)
+          and pool_launches == 58 and pool_by_variant == pool_want
+          and pool_rel <= LOGIT_TOL
+          and bool((pooled.argmax(-1) == want_pooled.argmax(-1)).all()))
+    log("evaluate", frames=EXTRACT_FRAMES, batch=EXTRACT_BATCH, wall_s=wall,
+        frames_per_s=EXTRACT_FRAMES / wall, launches=launches,
+        launches_by_variant=by_variant, routed_launches_by_variant=want_counts,
+        top1_disagreements=disagree, prf1_equals_plain=same_prf1,
+        max_abs_prob_diff=float(np.abs(probs - plain).max()),
+        AVG_NB_f1=got_m["prf1"].get_dict()["AVG_NB_f1"],
+        pool={"clips": POOL_BATCH, "window": POOL_WINDOW, "pool": "mean",
+              "launches": pool_launches, "launches_by_variant": pool_by_variant,
+              "routed_launches_by_variant": pool_want,
+              "logits_rel_err": pool_rel},
+        tol=LOGIT_TOL, ok=ok)
+    if not ok:
+        raise SystemExit("evaluation failed its gates")
+    total = {v: by_variant[v] + pool_by_variant[v] for v in by_variant}
+    return total
 
 
 def _round_trip_us(launch):
@@ -1067,8 +1413,7 @@ def densenet161_phase(dev):
     model = build_frame_model("DenseNet161", len(classes), D161_SHAPE)
     load_flax(model, random_flax_tree(to_flax(model), rng))
     predict_probs = make_predict_probs(model, dev)
-    db.dense_layer.launches = 0
-    db.dense_layer.variant_launches = dict.fromkeys(db.ROUTES, 0)
+    reset_dense_counts(db)
     t0 = time.perf_counter()
     make_service(classes, predict_probs, D161_BATCH, D161_SHAPE)  # warm-up
     warm_s = time.perf_counter() - t0
@@ -1169,7 +1514,9 @@ def dense_entry(name, variant, stack, launches, max_abs):
         "ms": ms, "device_ms": device_ms,
         "plain_ms": sum(r["plain_ms"] for r in mine),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": sum(r["library_ms"] for r in mine), "work": work,
+        "library_ms": sum(r["library_ms"] for r in mine),
+        "work": work + "; launches count the /predict batches served and the "
+                       "[extract] and [evaluate] runs",
     }
 
 
@@ -1220,13 +1567,20 @@ def main() -> int:
 
     build_phase()
     max_abs = kernel_phase()
-    agree, shapes = route_phase()
+    agree = route_phase()
     stack = stack_phase()
+    stack64_phase()
     launches = main_path_phase(torch.device("cuda"))
+    model, frames = extraction_inputs(torch.device("cuda"))
+    for phase in (extract_phase, evaluate_phase):
+        counts = phase(torch.device("cuda"), model, frames)
+        launches = {v: launches[v] + counts[v] for v in launches}
+    del model, frames
     gru_abs, gru_rows = gru_phase(torch.device("cuda"))
     gru_launches = caption_phase(torch.device("cuda"))
     densenet161_phase(torch.device("cuda"))
-    log("route_summary", shapes=shapes, routed_is_fastest=agree)
+    log("route_summary", routed_is_fastest_by_batch={
+        b: {"fastest": a, "shapes": n} for b, (a, n) in agree.items()})
 
     print(json.dumps({"kernels": [
         dense_entry("dense_layer", "tile", stack, launches, max_abs),

@@ -1,6 +1,10 @@
-"""TenniSet class list and caption index (counterpart of
-``tennis_tpu/data/tennis_set.py``; frame loading, class balancing and the
-loader are not ported yet).
+"""TenniSet index: the classification side (``TennisSet``: samples,
+labels, events, seeded class balancing, windows, frame and feature loading,
+feature dump paths) and the caption index (``CaptionIndex``); counterpart of
+``tennis_tpu/data/tennis_set.py``. The JAX ``TennisSet(captions=True)``
+mode is ``CaptionIndex`` here; in-band frame extraction from the source
+videos (``extract_missing``) and the native DCT-scaled JPEG decode are not
+ported yet.
 
 On-disk conventions, as in the JAX package:
 
@@ -14,6 +18,7 @@ On-disk conventions, as in the JAX package:
 """
 from __future__ import annotations
 
+import math
 import os
 from collections import OrderedDict
 
@@ -139,3 +144,264 @@ class CaptionIndex:
     def feature_path(self, idx: int, frame: int) -> str:
         return get_feature_path(self.feat_dir, self.points[self.samples[idx]][0],
                                 frame)
+
+
+def _read_image_rgb(path: str, min_short: int | None = None) -> np.ndarray:
+    """RGB uint8 read with cv2, at full size. ``min_short`` is the bound the
+    JAX package's native libjpeg path gives its DCT-scaled decode of
+    sources at least twice that size; the port decodes them whole (the
+    native decoder waits for a later slice), which is bit-identical with it
+    below that size."""
+    import cv2
+
+    img = cv2.imread(path, cv2.IMREAD_COLOR)
+    if img is None:
+        raise FileNotFoundError(path)
+    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+
+class TennisSet:
+    """Index over the TenniSet frames and labels for frame classification
+    and feature dumps (the JAX ``TennisSet`` with ``captions=False``).
+
+    ``__getitem__`` returns ``(img, label, idx)``: img is (H, W, C) uint8,
+    (window, H, W, C) uint8 for ``window > 1``, or the float32 features of
+    ``feats_model`` when given. Class balancing of 'OTH' is seeded
+    (``balance_seed``). ``save_feats`` extends each video's frames by 255 on
+    either side, labelled 'OTH', before the existence filter, so temporal
+    models get context features at event boundaries. Frames missing on disk
+    are dropped.
+    """
+
+    def __init__(self, root="data", transform=None, split="train", every=1,
+                 balance=True, padding=1, stride=1, window=1,
+                 model_id="0000", split_id="02", flow=False,
+                 feats_model=None, save_feats=False, balance_seed: int = 0,
+                 decode_short: int | None = None,
+                 frames_cache: int | None = None):
+        self._decode_short = decode_short
+        # the pre-resized mirror, with per-file fallback; off for the
+        # 6-channel path, whose 8-row crop needs the on-disk geometry
+        self._frames_cache_dir = None
+        self._frames_cache_short = None
+        if frames_cache and not flow:
+            from tennis_torch.data.frame_cache import cache_dir
+
+            self._frames_cache_dir = cache_dir(root, int(frames_cache))
+            self._frames_cache_short = int(frames_cache)
+        self._split = split
+        self._every = every
+        self._padding = padding  # a flag of the reference, unused there too
+        self._stride = stride
+        self._window = window
+        self._transform = transform
+        self._flow = flow
+        self._save_feats = save_feats
+
+        self._frames_dir = os.path.join(root, "frames")
+        self._flow_dir = os.path.join(root, "flow")
+        self._splits_dir = os.path.join(root, "splits")
+        self._labels_dir = os.path.join(root, "annotations", "labels")
+        self._load_feats = feats_model is not None
+        self.feat_dir = os.path.join(root, "features",
+                                     feats_model if self._load_feats
+                                     else model_id)
+        self.classes = load_classes(root)
+
+        self._samples, self._videos, self._events = self._load_data(split_id)
+        self._video_lengths = self._get_video_lengths()
+        if balance:
+            self._samples = self._balance_classes(balance_seed)
+
+    # ------------------------------------------------------------ loading
+
+    def _load_data(self, split_id):
+        from tennis_torch.utils import Progress
+
+        splits_file = os.path.join(self._splits_dir, split_id,
+                                   self._split + ".txt")
+        if not os.path.exists(splits_file):
+            raise FileNotFoundError(
+                f"Split file {splits_file} does not exist; cannot load dataset.")
+        with open(splits_file, "r") as f:
+            samples = [[line.split()[0], int(line.split()[1])]
+                       for line in f if line.strip()]
+        videos = list(OrderedDict.fromkeys(s[0] for s in samples))
+        labels = {v: {} for v in videos}
+
+        if self._save_feats:
+            # 255 frames of context past each end of a video's range
+            for v in videos:
+                frames = [s[1] for s in samples if s[0] == v]
+                min_f, max_f = min(frames), max(frames)
+                for i in range(1, 256):
+                    samples.append([v, min_f - i])
+                    samples.append([v, max_f + i])
+                    labels[v][min_f - i] = "OTH"
+                    labels[v][max_f + i] = "OTH"
+
+        samples = [
+            s for s in Progress.wrap(samples, f"scanning {self._split} frames",
+                                     unit="frames", interval=30.0)
+            if os.path.exists(get_image_path(self._frames_dir, s[0], s[1]))]
+
+        for v in videos:
+            with open(os.path.join(self._labels_dir, v + ".txt"), "r") as f:
+                for line in f:
+                    parts = line.split()
+                    if len(parts) >= 2:
+                        labels[v][int(parts[0])] = parts[1]
+
+        in_set = {v: [] for v in videos}
+        for s in samples:
+            s.append(labels[s[0]][s[1]])
+            in_set[s[0]].append(s[1])
+
+        # events: maximal runs of one label over the sorted in-split frames;
+        # as in the reference, the first run of a video starts as 'OTH'
+        events = []
+        for v in videos:
+            cur_class, start_frame, last_frame = "OTH", -1, -1
+            for frame in sorted(in_set[v]):
+                if start_frame < 0:
+                    start_frame = last_frame = frame
+                if labels[v][frame] != cur_class:
+                    events.append([v, start_frame, last_frame, cur_class])
+                    cur_class = labels[v][frame]
+                    start_frame = frame
+                last_frame = frame
+            events.append([v, start_frame, last_frame, cur_class])
+        return samples, videos, events
+
+    def _get_video_lengths(self):
+        """Largest extracted frame number of each video, from the chunked
+        frames layout, walking back over empty trailing chunk dirs."""
+        lengths = {}
+        for sample in self._samples:
+            v = sample[0]
+            if v in lengths:
+                continue
+            vdir = os.path.join(self._frames_dir, v + ".mp4")
+            if not os.path.isdir(vdir):
+                lengths[v] = max(s[1] for s in self._samples if s[0] == v)
+                continue
+            chunks = sorted(d for d in os.listdir(vdir) if d.isdigit())
+            for chunk in reversed(chunks):
+                files = sorted(os.listdir(os.path.join(vdir, chunk)))
+                if files:
+                    lengths[v] = int(os.path.splitext(files[-1])[0])
+                    break
+            else:
+                raise FileNotFoundError(f"no extracted frames under {vdir}")
+        return lengths
+
+    # ---------------------------------------------------------- balancing
+
+    def _balance_classes(self, seed: int):
+        """Downsample 'OTH' to the next most frequent class in expectation,
+        with a seeded generator."""
+        counts = self.class_counts()
+        ratio = max(counts[1:]) / float(counts[0] + 1)
+        rng = np.random.default_rng(seed)
+        return [s for s in self._samples
+                if not (s[2] == "OTH" and rng.uniform(0.0, 1.0) > ratio)]
+
+    def class_counts(self):
+        counts = [0] * len(self.classes)
+        index = {c: i for i, c in enumerate(self.classes)}
+        for s in self._samples:
+            counts[index[s[2]]] += 1
+        return counts
+
+    @property
+    def num_class(self):
+        return len(self.classes)
+
+    def __len__(self):
+        return len(self._samples)
+
+    # ----------------------------------------------------------- sampling
+
+    def _load_frame(self, video, frame):
+        if self._load_feats:
+            return np.load(get_feature_path(self.feat_dir, video, frame))
+        min_short = None if self._flow else self._decode_short
+        path = get_image_path(self._frames_dir, video, frame)
+        cache_miss_short = None
+        if self._frames_cache_dir is not None:
+            cached = get_image_path(self._frames_cache_dir, video, frame)
+            if os.path.exists(cached):
+                path = cached
+            else:
+                # a miss takes the cache's geometry, so that one window
+                # never mixes resolutions
+                cache_miss_short = self._frames_cache_short
+        img = _read_image_rgb(path, min_short)
+        if cache_miss_short is not None and min(img.shape[:2]) > cache_miss_short:
+            from tennis_torch.data.transforms import resize_shorter
+
+            img = resize_shorter(img, cache_miss_short)
+        if self._flow:
+            flw = _read_image_rgb(get_image_path(self._flow_dir, video, frame))
+            # flow frames are 16 rows shorter: crop 8 rows off each end of
+            # the RGB frame before the 6-channel concat
+            img = np.concatenate([img[8:-8], flw], axis=-1)
+        return img
+
+    def _max_every_frame(self, video):
+        """Largest frame index that is a multiple of ``every``."""
+        max_frame = self._video_lengths[video] - self._every
+        for i in range(self._every):
+            if (max_frame - i) % self._every == 0:
+                max_frame -= i
+                break
+        return max_frame
+
+    def window_frames(self, idx):
+        """Frame numbers of the temporal window of sample ``idx``."""
+        sample = self._samples[idx]
+        offsets = range(int(-self._window / 2), int(math.ceil(self._window / 2)))
+        max_frame = self._max_every_frame(sample[0])
+        return [min(max(0, sample[1] + o * self._stride), int(max_frame))
+                for o in offsets]
+
+    def __getitem__(self, idx):
+        sample = self._samples[idx]
+        label = self.classes.index(sample[2])
+        if self._window > 1:
+            imgs = []
+            for frame in self.window_frames(idx):
+                img = self._load_frame(sample[0], frame)
+                if self._transform is not None:
+                    img = self._transform(img)
+                imgs.append(img)
+            img = np.stack(imgs)
+        else:
+            img = self._load_frame(sample[0], sample[1])
+            if self._transform is not None:
+                img = self._transform(img)
+        return img, label, idx
+
+    def save_feature_path(self, idx, chunk_size=CHUNK_SIZE):
+        sample = self._samples[idx]
+        return get_feature_path(self.feat_dir, sample[0], sample[1], chunk_size)
+
+    # ---------------------------------------------------------- reporting
+
+    def stats(self):
+        frame_counts = self.class_counts()
+        event_counts = [0] * len(self.classes)
+        index = {c: i for i, c in enumerate(self.classes)}
+        for e in self._events:
+            event_counts[index[e[3]]] += 1
+        out = f"Split: {self._split}\n"
+        out += "{0: <6} {1: <8} {2: <8} {3: <5}\n".format(
+            "Class", "# Frames", "# Events", "FperE")
+        for i, c in enumerate(self.classes):
+            out += "{0: <6} {1: <8} {2: <8} {3: <5}\n".format(
+                c, frame_counts[i], event_counts[i],
+                int(frame_counts[i] / (event_counts[i] + 1e-5)))
+        return out
+
+    def __str__(self):
+        return "\n\n" + self.__class__.__name__ + "\n" + self.stats() + "\n"

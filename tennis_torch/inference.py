@@ -6,6 +6,8 @@ bridge into ``FrameModel(DenseNet)``, the BN operands are folded once, and
 ``predict_probs`` maps a uint8 batch (B, S, S, 3) to host (B, classes)
 softmax on the chosen device: uint8 upload -> ``device_prepare`` -> forward
 (every dense layer through the dense-layer kernel) -> softmax.
+``make_extract_features`` is the same forward stopped at the backbone's
+f32 features, for the feature dump.
 
 Captioner: a captioning experiment's ``valid_best.params`` goes through the
 bridge into the features-path ``NMTModel`` the ``--gnmt_flag`` arguments
@@ -74,18 +76,59 @@ def load_classifier_state(backbone: str, model_id: str, data_shape: int,
 def make_predict_probs(model, device: torch.device):
     """Move ``model`` to ``device``, fold its BN operands once, and return
     ``predict_probs(uint8 (B, S, S, 3)) -> np.ndarray (B, classes)``."""
+    step = make_eval_step(model, device)
+
+    def predict_probs(images) -> np.ndarray:
+        logits = step(np.asarray(images, np.uint8))
+        return torch.softmax(logits, dim=-1).cpu().numpy()
+
+    return predict_probs
+
+
+def make_extract_features(model, device: torch.device):
+    """Move ``model`` to ``device``, fold its BN operands once, and return
+    ``extract(uint8 (B, S, S, 3)) -> f32 (B, F)`` backbone features, a
+    tensor on ``device``: ``device_prepare`` -> ``model.features`` (every
+    dense layer through the dense-layer kernels on a GPU). The input may be
+    a tensor already on ``device`` or a host array."""
     from tennis_torch.data.transforms import device_prepare
 
     model = model.to(device).eval()
     model.backbone.fold()
 
     @torch.inference_mode()
-    def predict_probs(images) -> np.ndarray:
-        x = torch.as_tensor(np.asarray(images, np.uint8)).to(device)
-        logits = model(device_prepare(x, model.dtype))
-        return torch.softmax(logits, dim=-1).cpu().numpy()
+    def extract(images) -> torch.Tensor:
+        x = torch.as_tensor(images).to(device)
+        return model.features(device_prepare(x, model.dtype)).float()
 
-    return predict_probs
+    return extract
+
+
+def make_eval_step(model, device: torch.device, pool: str | None = None,
+                   feats: bool = False):
+    """Move ``model`` (a ``FrameModel``) to ``device``, fold its BN operands
+    once, and return ``step(batch) -> f32 logits`` on ``device``. uint8
+    input (frames (B, S, S, 3) or clips (B, T, S, S, 3)) goes through
+    ``device_prepare`` first. With ``pool`` ("max" or "mean") the step is the
+    ``TemporalPooling(wrap_head=True)`` wrap: the backbone features of each
+    clip's frames in one forward (or, with ``feats``, (B, T, F) features as
+    given) pooled over T, then the model's own head."""
+    from tennis_torch.data.transforms import device_prepare
+    from tennis_torch.models import TemporalPooling
+
+    model = model.to(device).eval()
+    model.backbone.fold()
+    net = model if pool is None else TemporalPooling(
+        model, pool=pool, feats=feats, wrap_head=True)
+
+    @torch.inference_mode()
+    def step(batch) -> torch.Tensor:
+        x = torch.as_tensor(batch).to(device)
+        if x.dtype == torch.uint8:
+            x = device_prepare(x, model.dtype)
+        return net(x)
+
+    return step
 
 
 def load_classifier(backbone: str, model_id: str, data_shape: int,

@@ -3,8 +3,8 @@
 from tennis_torch.models.backbones import get_backbone, backbone_feature_dim
 from tennis_torch.models.backbones.densenet import DenseNet, DenseNetSpec, \
     DENSENET_SPECS
-from tennis_torch.models.frame import FrameModel, TimeDistributed, \
-    time_distributed
+from tennis_torch.models.frame import FrameModel, TemporalPooling, \
+    TimeDistributed, time_distributed
 
 __all__ = [
     "get_backbone",
@@ -13,6 +13,7 @@ __all__ = [
     "DenseNetSpec",
     "DENSENET_SPECS",
     "FrameModel",
+    "TemporalPooling",
     "TimeDistributed",
     "time_distributed",
 ]

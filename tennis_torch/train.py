@@ -1,0 +1,459 @@
+"""Event-classifier driver (counterpart of ``tennis_tpu/train.py``), eval
+modes only.
+
+The flags are the JAX driver's, with the same names and defaults, parsed
+with argparse (absl booleans take ``--name``, ``--name=false`` and
+``--noname``), plus ``--device`` (``cuda`` by default; asking for it without
+a GPU raises). Two invocations run, neither of which trains:
+
+- ``--save_feats``: dump the backbone features of every sample of the
+  train, val and test splits (the train split with its 255-frame context
+  extension, no balancing and the test geometry) as f32 ``(F,)`` ``.npy``
+  files under ``<root>/features/<model_id>/``, from the experiment's best
+  epoch (``scores.txt``), else its newest readable epoch. An experiment
+  with no checkpoint dumps from a fresh init drawn from ``--seed`` by the
+  port's own generator, whose values differ from the JAX package's.
+- ``--temp_pool max|mean``: the final test of a framewise-trained donor
+  (``--feats_model``: its best epoch over its dumped features;
+  ``--backbone_from_id``: its newest epoch over frames), its backbone
+  features pooled over ``--window`` and its own head applied.
+
+On a GPU every DenseNet dense layer runs in a dense-layer CUDA kernel.
+Training, and every option that only training or an unported model family
+uses, raises ``NotImplementedError`` naming its ``ROADMAP.md`` slice.
+
+Run: ``python -m tennis_torch.train --model_id 0006 --backbone DenseNet121
+--save_feats`` (``--device cpu`` off the GPU).
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+log = logging.getLogger(__name__)
+
+
+def _bool(value: str) -> bool:
+    if value.lower() in ("1", "true", "t", "yes"):
+        return True
+    if value.lower() in ("0", "false", "f", "no"):
+        return False
+    raise argparse.ArgumentTypeError(f"not a boolean: {value!r}")
+
+
+def _list(value: str) -> list[str]:
+    """A comma-separated list, as absl's ``DEFINE_list`` parses it."""
+    return [v.strip() for v in value.split(",") if v.strip()]
+
+
+def _add_bool(p: argparse.ArgumentParser, name: str, help_: str):
+    p.add_argument(f"--{name}", type=_bool, nargs="?", const=True,
+                   default=False, help=help_)
+    p.add_argument(f"--no{name}", dest=name, action="store_false",
+                   help=argparse.SUPPRESS)
+
+
+def add_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The JAX ``train.py`` flag surface, and ``--device``."""
+    add = p.add_argument
+    add("--root", default="data", help="Dataset root directory")
+    add("--backbone", default="resnet18_v2", help="Backbone CNN name")
+    add("--backbone_from_id", default=None,
+        help="Load backbone weights from another experiment id")
+    _add_bool(p, "freeze_backbone", "Freeze the backbone model")
+    add("--model_id", default="0000", help="model identification string")
+    add("--split_id", default="02", help="split id: 01 or 02")
+    add("--log_interval", type=int, default=100,
+        help="Logging mini-batch interval")
+    add("--data_shape", type=int, default=512, help="Input crop side")
+    add("--every", type=_list, default="1,1,1",
+        help="Use every nth frame: [train, val, test]")
+    add("--balance", type=_list, default="True,False,False",
+        help="Balance classes per split")
+    add("--window", type=int, default=1, help="Temporal window size")
+    add("--padding", type=int, default=1,
+        help="Padding around event boundaries (parity flag)")
+    add("--stride", type=int, default=1, help="Temporal stride within a window")
+    add("--batch_size", type=int, default=64, help="Global batch size")
+    add("--epochs", type=int, default=20, help="Training epochs")
+    add("--num_devices", "--num_gpus", dest="num_devices", type=int,
+        default=-1, help="Devices for the data axis (-1 = all)")
+    add("--num_workers", type=int, default=-1,
+        help="Host loader threads (-1 = auto)")
+    add("--lr", type=float, default=0.001, help="Learning rate")
+    add("--lr_factor", type=float, default=0.75, help="LR step factor")
+    add("--lr_steps", type=_list, default="10,20",
+        help="Epochs at which the LR factor applies")
+    add("--momentum", type=float, default=0.9, help="SGD momentum")
+    add("--wd", type=float, default=0.0001, help="Weight decay")
+    _add_bool(p, "vis", "Visualise test results")
+    _add_bool(p, "save_feats", "Save backbone features as .npy")
+    add("--feats_model", default=None, help="Load features from this model id")
+    add("--flow", default="", help="'' | 'only' | 'sixc' | 'twos'")
+    add("--temp_pool", default=None, help="mean, max, gru or lstm")
+    add("--max_batches", type=int, default=-1,
+        help="Limit batches per epoch (debug)")
+    add("--pretrained_npz", default=None,
+        help="Optional converted pretrained backbone weights (.npz)")
+    add("--seed", type=int, default=0, help="Global RNG seed")
+    add("--frames_cache", type=int, default=0,
+        help="Read frames from the pre-resized data/frames_s<N> mirror "
+             "(0 reads the original tree; missing cache files fall back "
+             "per file)")
+    add("--profile_steps", type=int, default=0,
+        help="Trace this many train steps (training only)")
+    _add_bool(p, "multihost", "Multi-process run (not ported)")
+    add("--coordinator", default=None,
+        help="multihost coordinator address host:port")
+    add("--num_hosts", type=int, default=None, help="multihost process count")
+    add("--host_id", type=int, default=None, help="this process's index")
+    add("--remat", default="none", choices=["none", "block", "hires", "growth"],
+        help="Dense-block rematerialization (training memory; no effect in "
+             "eval)")
+    add("--device", default="cuda", choices=["cuda", "cpu"],
+        help="Device the model runs on")
+    return p
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description="Event-classifier driver")
+    return add_flags(p).parse_args(argv)
+
+
+def refuse_unported(args: argparse.Namespace):
+    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    if args.multihost or args.num_devices > 1:
+        raise NotImplementedError("multi-device runs are not ported yet "
+                                  "(ROADMAP.md slice 9)")
+    if args.pretrained_npz:
+        raise NotImplementedError("--pretrained_npz needs the weight converter, "
+                                  "not ported yet (ROADMAP.md slice 10)")
+    if args.flow:
+        raise NotImplementedError("--flow (TwoStream, 6-channel input) is not "
+                                  "ported yet (ROADMAP.md slice 7)")
+    if args.backbone.lower() == "rdnet":
+        raise NotImplementedError("rdnet (R(2+1)D) is not ported yet "
+                                  "(ROADMAP.md slice 7)")
+    if args.temp_pool in ("gru", "lstm"):
+        raise NotImplementedError("--temp_pool gru|lstm (CNNRNN) is not "
+                                  "ported yet (ROADMAP.md slice 7)")
+    if args.vis:
+        raise NotImplementedError("--vis is not ported yet (ROADMAP.md "
+                                  "slice 4)")
+
+
+def make_datasets(args):
+    """(train, val, test) sets; the train split is balanced only without
+    ``--save_feats``."""
+    from tennis_torch.data.tennis_set import TennisSet
+
+    every = [int(s) for s in args.every]
+    balance = [str(s).strip().lower() in ("true", "t") for s in args.balance]
+    train_set = TennisSet(
+        split="train", every=every[0],
+        balance=balance[0] and not args.save_feats, balance_seed=args.seed,
+        decode_short=(args.data_shape + 32 if (args.window > 1 or args.flow
+                                               or args.save_feats) else None),
+        **_common(args))
+    val_set = make_eval_dataset(args, "val", every_n=every[1])
+    test_set = make_eval_dataset(args, "test")
+    return train_set, val_set, test_set
+
+
+def _common(args) -> dict:
+    return dict(root=args.root, split_id=args.split_id, padding=args.padding,
+                stride=args.stride, window=args.window, model_id=args.model_id,
+                flow=bool(args.flow), feats_model=args.feats_model or None,
+                save_feats=args.save_feats,
+                frames_cache=args.frames_cache or None)
+
+
+def make_eval_dataset(args, split: str, every_n: int | None = None):
+    """One split with test-time settings: no balancing, the test-split
+    ``every`` unless overridden."""
+    from tennis_torch.data.tennis_set import TennisSet
+
+    every = [int(s) for s in args.every]
+    return TennisSet(split=split, every=every[2] if every_n is None else every_n,
+                     balance=False, decode_short=args.data_shape + 32,
+                     **_common(args))
+
+
+def _geometry_transform(args, train: bool):
+    """Host-side geometry of raw frames; features pass through. The train
+    split takes the test geometry under ``--save_feats``, ``--window > 1``
+    and ``--flow``; its random train geometry comes with training."""
+    from tennis_torch.data import transforms as T
+
+    if train and args.window == 1 and not args.flow and not args.save_feats:
+        raise NotImplementedError("the train-time augmentation is not ported "
+                                  "yet (ROADMAP.md slice 5)")
+
+    def apply(sample):
+        img, label, idx = sample
+        if img.ndim == 2 or (img.ndim == 3 and img.shape[-1] in (3, 6)):
+            img = T.test_geometry(img, args.data_shape)
+        elif img.ndim == 4:  # (T, H, W, C) window clip
+            img = np.stack([T.test_geometry(f, args.data_shape) for f in img])
+        return img, label, idx
+
+    return apply
+
+
+def build_model(args, num_classes: int, feats: bool = False):
+    """``FrameModel(backbone, num_classes)`` drawn from ``--seed`` (CPU,
+    f32 parameters). Feature input needs a temporal model."""
+    from tennis_torch.inference import build_frame_model
+
+    if feats:
+        raise ValueError("--feats_model requires --temp_pool (gru/lstm/max/mean)")
+    return build_frame_model(args.backbone, num_classes, args.data_shape,
+                             generator=torch.Generator().manual_seed(args.seed))
+
+
+def _metric_set(class_names):
+    from tennis_torch.metrics import PRF1, Accuracy, TopKAccuracy
+
+    return {
+        "acc": Accuracy(),
+        "acc_nb": Accuracy("accuracy_no_bg", ignore_labels=[0]),
+        "acc_b": Accuracy("accuracy_bg",
+                          ignore_labels=list(range(1, len(class_names)))),
+        "top5": TopKAccuracy(5),
+        "prf1": PRF1(class_names),
+    }
+
+
+def load_tree(model, tree: dict, path: str):
+    """Load a checkpoint tree's ``params``/``batch_stats`` into ``model``;
+    a tree of another architecture raises ``ValueError``."""
+    from tennis_torch.bridge import load_flax
+
+    try:
+        load_flax(model, {"params": tree["params"],
+                          "batch_stats": tree.get("batch_stats", {})})
+    except (KeyError, RuntimeError) as e:
+        raise ValueError(f"checkpoint {path} does not match the model "
+                         f"(architecture or flag mismatch): {e}") from e
+
+
+def load_epoch(model, exp_dir: str, epoch: int):
+    from tennis_torch.utils import checkpoint as ckpt
+
+    path = ckpt.epoch_path(exp_dir, epoch)
+    load_tree(model, ckpt.load_raw(path), path)
+
+
+def _load_backbone_from(model, from_id: str):
+    """Transplant the backbone parameters (not its BN statistics, as in the
+    JAX driver) of ``from_id``'s newest epoch."""
+    from tennis_torch.bridge import from_flax
+    from tennis_torch.utils import checkpoint as ckpt
+    from tennis_torch.utils.experiments import experiment_dir
+
+    src_dir = experiment_dir("vision", from_id)
+    latest = ckpt.latest_epoch(src_dir)
+    if latest is None:
+        log.warning("no checkpoints in %s; backbone not transplanted", src_dir)
+        return
+    log.info("transplanting backbone from %s epoch %d", from_id, latest)
+    raw = ckpt.load_raw(ckpt.epoch_path(src_dir, latest))
+    state = from_flax({"params": {"backbone": raw["params"]["backbone"]}})
+    want = {n for n, _ in model.named_parameters() if n.startswith("backbone.")}
+    if set(state) != want:
+        raise ValueError(f"backbone of {from_id} does not match the model")
+    model.load_state_dict(state, strict=False)
+
+
+def _to_host(feats: torch.Tensor):
+    """Start the copy of ``feats`` to the host: (host tensor, event or
+    None). On a GPU it is a non-blocking copy into pinned memory on the
+    compute stream, behind the forward that made ``feats``."""
+    if feats.device.type != "cuda":
+        return feats, None
+    host = torch.empty(feats.shape, dtype=feats.dtype, pin_memory=True)
+    host.copy_(feats, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def save_features(extract, datasets, loaders, device) -> dict:
+    """Dump ``extract``'s f32 features of every sample of each dataset as
+    ``.npy`` at its ``save_feature_path``, through ``loaders[split]``.
+
+    Three things overlap: the copy of batch t+1 to the device (the prefetch
+    threads), the forward of batch t, and the copy back and the writes of
+    batch t-1 (a 4-thread writer pool); the host waits for batch t-1's copy
+    only after batch t's forward is enqueued. Returns, per split, the files
+    written, the seconds taken, the prefetch stats, ``copy_wait_s`` (time the
+    host waited for features to reach it) and ``write_drain_s`` (time the
+    writes lagged the last forward)."""
+    from tennis_torch.data.loader import prefetch_to_device
+
+    def write_one(ds, feat, idx):
+        path = ds.save_feature_path(int(idx))
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.save(path, feat)
+
+    report = {}
+    for ds in datasets:
+        split = ds._split
+        tic = time.perf_counter()
+        stats = {"files": 0, "copy_wait_s": 0.0, "prefetch": {}}
+        pending, futures = None, []
+        with ThreadPoolExecutor(4) as writer:
+
+            def flush(item):
+                (host, event), idxs = item
+                t0 = time.perf_counter()
+                if event is not None:
+                    event.synchronize()
+                stats["copy_wait_s"] += time.perf_counter() - t0
+                for feat, idx in zip(host.numpy(), idxs):
+                    futures.append(writer.submit(write_one, ds, feat, idx))
+                stats["files"] += len(idxs)
+                # surface write errors early; keep the list short
+                while futures and futures[0].done():
+                    futures.pop(0).result()
+
+            for images, _, idxs in prefetch_to_device(
+                    iter(loaders[split]), device, stats=stats["prefetch"]):
+                staged = _to_host(extract(images))
+                if pending is not None:
+                    flush(pending)
+                pending = (staged, idxs)
+            if pending is not None:
+                flush(pending)
+            t0 = time.perf_counter()
+            for f in futures:
+                f.result()
+            stats["write_drain_s"] = time.perf_counter() - t0
+        stats["seconds"] = time.perf_counter() - tic
+        log.info("saved %d feature files for split %s", stats["files"], split)
+        report[split] = stats
+    return report
+
+
+def _pooled_final_test(args, test_set, loader, device):
+    """``--temp_pool max|mean``: no training. The framewise donor (best
+    epoch of ``--feats_model``, else newest of ``--backbone_from_id``) has
+    its backbone features pooled over the window and its own head applied."""
+    from tennis_torch.data.loader import eval_iter
+    from tennis_torch.inference import make_eval_step
+    from tennis_torch.utils import checkpoint as ckpt
+    from tennis_torch.utils.experiments import experiment_dir
+
+    if not (args.backbone_from_id or args.feats_model):
+        raise ValueError("--temp_pool max|mean evaluates a pretrained net: "
+                         "pass --feats_model or --backbone_from_id")
+    if args.window <= 1:
+        raise ValueError("--temp_pool max|mean needs --window > 1")
+    inner = build_model(args, test_set.num_class)
+    if args.feats_model:
+        src_dir = experiment_dir("vision", args.feats_model)
+        best = ckpt.best_epoch(src_dir)
+        if best is None:
+            raise FileNotFoundError(f"no scores.txt in {src_dir}")
+        load_epoch(inner, src_dir, best[0])
+        log.info("testing best donor epoch %d (score=%.4f) from %s", best[0],
+                 best[1], args.feats_model)
+    else:
+        src_dir = experiment_dir("vision", args.backbone_from_id)
+        latest = ckpt.latest_epoch(src_dir)
+        if latest is None:
+            raise FileNotFoundError(f"no checkpoints in {src_dir}")
+        load_epoch(inner, src_dir, latest)
+        log.info("testing donor epoch %d from %s", latest,
+                 args.backbone_from_id)
+    step = make_eval_step(inner, device, pool=args.temp_pool,
+                          feats=bool(args.feats_model))
+    metrics = _metric_set(test_set.classes)
+    tic = time.time()
+    for logits, labels, _ in eval_iter(loader, step, device):
+        for m in metrics.values():
+            m.update(labels, logits)
+    for name, m in metrics.items():
+        if name != "prf1":
+            log.info("test %s=%.4f", *m.get())
+    for name, value in metrics["prf1"].get():
+        log.info("test %s=%.4f", name, value)
+    log.info("confusion:\n%s", metrics["prf1"].confusion_str())
+    log.info("# Samples: %d, Time Taken: %.1f", len(test_set), time.time() - tic)
+    return metrics
+
+
+def _num_workers(args, default: int) -> int:
+    return args.num_workers if args.num_workers > 0 else default
+
+
+def train_and_evaluate(args: argparse.Namespace):
+    """Run ``--save_feats`` (returns the per-split dump report) or the
+    ``--temp_pool max|mean`` final test (returns its metric set)."""
+    from tennis_torch.data.loader import DataLoader
+    from tennis_torch.inference import make_extract_features, resolve_device
+    from tennis_torch.utils import checkpoint as ckpt
+    from tennis_torch.utils.experiments import experiment_dir, setup_logging
+
+    refuse_unported(args)
+    pooled = args.temp_pool in ("max", "mean") and not args.save_feats
+    if not (args.save_feats or pooled):
+        raise NotImplementedError("training is not ported yet (ROADMAP.md "
+                                  "slice 5): pass --save_feats or --temp_pool "
+                                  "max|mean")
+    if args.save_feats and args.temp_pool in ("max", "mean"):
+        raise ValueError("--save_feats needs a backbone-bearing model "
+                         "(FrameModel); it cannot be combined with "
+                         "--temp_pool/--feats_model configurations")
+    device = resolve_device(args.device)
+    exp_dir = experiment_dir("vision", args.model_id)
+    setup_logging(exp_dir, vars(args))
+    feats = bool(args.feats_model)
+    workers = _num_workers(args, os.cpu_count() or 8)
+
+    def loader(ds, train):
+        return DataLoader(ds, batch_size=args.batch_size, shuffle=False,
+                          seed=args.seed, num_workers=workers, drop_last=False,
+                          transform=None if feats else
+                          _geometry_transform(args, train))
+
+    if pooled:
+        test_set = make_eval_dataset(args, "test")
+        log.info(test_set)
+        return _pooled_final_test(args, test_set, loader(test_set, False),
+                                  device)
+
+    datasets = make_datasets(args)
+    for ds in datasets:
+        log.info(ds)
+    model = build_model(args, datasets[0].num_class, feats)
+    if args.backbone_from_id:
+        _load_backbone_from(model, args.backbone_from_id)
+    found = ckpt.latest_readable(exp_dir)
+    if found is not None:
+        epoch, tree = found
+        load_tree(model, tree, ckpt.epoch_path(exp_dir, epoch))
+        log.info("resumed from epoch %d", epoch)
+    best = ckpt.best_epoch(exp_dir)
+    if best is not None:
+        load_epoch(model, exp_dir, best[0])
+        log.info("dumping features from best epoch %d (score=%.4f)", best[0],
+                 best[1])
+    # every sample, in order, the ragged last batch kept
+    loaders = {ds._split: loader(ds, ds._split == "train") for ds in datasets}
+    return save_features(make_extract_features(model, device), datasets,
+                         loaders, device)
+
+
+def main(argv=None):
+    return train_and_evaluate(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

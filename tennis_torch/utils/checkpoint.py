@@ -1,5 +1,8 @@
 """Checkpoint reading and model-selection conventions (counterpart of
-``tennis_tpu/utils/checkpoint.py``; only reading is ported yet).
+``tennis_tpu/utils/checkpoint.py``). The read side is ported: ``load_raw``,
+epoch selection and the resume scan (``latest_readable``). The writer
+(atomic epoch files, ``append_score``, the async checkpointer) is not; it
+comes with training.
 
 - ``<exp_dir>/{epoch:04d}.params``  one flax-msgpack file per epoch;
 - ``<exp_dir>/scores.txt``          ``<epoch>\\t<score>`` lines, best = argmax.
@@ -60,13 +63,16 @@ def _unchunk(tree):
     return tree
 
 
-def load_raw(path: str):
-    """Restore a checkpoint as plain nested dicts of numpy arrays."""
+def _restore(data: bytes):
     import msgpack
 
+    return _unchunk(msgpack.unpackb(data, ext_hook=_ext_hook, raw=False))
+
+
+def load_raw(path: str):
+    """Restore a checkpoint as plain nested dicts of numpy arrays."""
     with open(path, "rb") as f:
-        tree = msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
-    return _unchunk(tree)
+        return _restore(f.read())
 
 
 def epoch_path(exp_dir: str, epoch: int) -> str:
@@ -121,3 +127,23 @@ def best_or_latest(exp_dir: str) -> tuple[int, float]:
                 f"no checkpoints or scores.txt in {exp_dir}")
         best = (latest, float("nan"))
     return best
+
+
+def latest_readable(exp_dir: str):
+    """``(epoch, tree)`` of the newest epoch file that parses, else None:
+    the read side of the JAX package's ``resume_state`` scan, newest first.
+    A file whose bytes fail to parse is skipped with a warning; the JAX
+    package also renames it to ``<name>.corrupt``, a write that waits for
+    the training slice. Errors reading the file itself propagate."""
+    for epoch in reversed(list_epochs(exp_dir)):
+        import msgpack  # noqa: F401  (a missing package is no corrupt file)
+
+        path = epoch_path(exp_dir, epoch)
+        with open(path, "rb") as f:
+            data = f.read()
+        try:
+            return epoch, _restore(data)
+        except Exception as e:  # any parse failure of the bytes
+            log.warning("unreadable checkpoint %s (%s: %s) - trying the "
+                        "next-newest epoch", path, type(e).__name__, e)
+    return None

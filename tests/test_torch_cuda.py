@@ -434,3 +434,86 @@ def test_densenet161_forward_takes_no_dense_kernel(dev):
     with pytest.raises(ValueError, match="bottleneck"):
         state = torch.zeros(1, 8, 8, 192, dtype=torch.bfloat16, device=dev)
         db.dense_layer(state, 96, model.operands()["layers"][0][0], "cluster")
+
+
+# ------------------------------------------------- feature dump and prefetch
+
+LOGIT_TOL = 5e-2  # max |kernel path - plain| / max |plain| after 58 layers
+
+
+class _Split:
+    """An in-memory split with what save_features reads of a TennisSet."""
+
+    def __init__(self, frames, feat_dir):
+        self.frames, self.feat_dir, self._split = frames, feat_dir, "mem"
+
+    def __len__(self):
+        return len(self.frames)
+
+    def __getitem__(self, idx):
+        return self.frames[idx], 0, idx
+
+    def save_feature_path(self, idx):
+        from tennis_torch.data.tennis_set import get_feature_path
+
+        return get_feature_path(self.feat_dir, "mem", idx)
+
+
+def test_save_features_matches_plain(dev, tmp_path):
+    """DenseNet121 at 512^2 over 64 + 5 frames (a full and a ragged batch):
+    every file f32 (4096,), within LOGIT_TOL of the plain-version features,
+    58 dense launches a batch."""
+    import numpy as np
+
+    from tennis_torch import train as driver
+    from tennis_torch.data.loader import DataLoader
+    from tennis_torch.data.transforms import device_prepare
+    from tennis_torch.inference import build_frame_model, \
+        make_extract_features
+
+    model = build_frame_model("DenseNet121", 11, 512,
+                              generator=torch.Generator().manual_seed(0))
+    frames = np.random.default_rng(0).integers(0, 256, (69, 512, 512, 3),
+                                               dtype=np.uint8)
+    ds = _Split(frames, str(tmp_path))
+    extract = make_extract_features(model, dev)
+    launches = db.dense_layer.launches
+    report = driver.save_features(extract, [ds], {
+        "mem": DataLoader(ds, 64, num_workers=4)}, dev)
+    assert db.dense_layer.launches == launches + 2 * 58
+    assert report["mem"]["files"] == 69
+    got = np.stack([np.load(ds.save_feature_path(i)) for i in range(69)])
+    assert got.dtype == np.float32 and got.shape == (69, 4096)
+    bb = model.backbone
+    for lo, hi in ((0, 64), (64, 69)):
+        with torch.inference_mode():
+            x = device_prepare(torch.from_numpy(frames[lo:hi]).to(dev))
+            want = db.densenet_features(bb.spec, bb.operands(), x, bb.dtype,
+                                        layer=db.dense_layer_reference)
+        want = want.float().cpu().numpy()
+        err = np.abs(got[lo:hi] - want).max() / np.abs(want).max()
+        assert err <= LOGIT_TOL, err
+
+
+def test_prefetch_pinned_batches_stay_intact(dev):
+    """20 batches through the pinned ring and the copy stream while the
+    consumer's stream is kept busy: each batch's bytes arrive intact, though
+    the consumer drops each tensor while its kernels may still read it."""
+    import numpy as np
+
+    from tennis_torch.data.loader import prefetch_to_device
+
+    batches = [(np.full((8, 256, 256, 3), i, np.uint8), np.arange(8) + i,
+                np.arange(8)) for i in range(20)]
+    busy = torch.randn(2048, 2048, device=dev)
+    sums, stats = [], {}
+    for k, (x, labels, _) in enumerate(prefetch_to_device(
+            iter(batches), dev, stats=stats)):
+        assert x.device.type == "cuda" and x.dtype == torch.uint8
+        for _ in range(4):  # device work ahead of the read
+            busy = (busy @ busy).tanh_()
+        sums.append(x.sum(dtype=torch.int64))
+        assert labels[0] == k  # host side, unmoved
+    want = [8 * 256 * 256 * 3 * i for i in range(20)]
+    assert [int(s) for s in sums] == want
+    assert stats["batches"] == 20
