@@ -45,6 +45,30 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    through ``eval_iter`` and the metric set, PRF1 against the plain
    version's, frames/s; the ``--temp_pool mean`` wrap through the backbone
    at 2 clips x 8 frames (58 launches, one forward);
+4c. training (``[train]``, run after phase 7): ``FrameModel(DenseNet121,
+   11)`` at 512^2 and
+   batch 64 over 256 seeded in-memory uint8 frames, through
+   ``make_train_step``: ``apply_augment``, the bf16 train-mode forward and
+   backward (plain torch ops and cuDNN, as the JAX package trains through
+   its flax module), momentum SGD. With ``remat`` none and block: 3
+   warm-up and 20 timed steps each (step ms, samples/s, device busy and
+   idle share over 2 profiled steps, the largest kernels, peak memory,
+   model FLOPs and ``mfu`` against the dense bf16 peak). Gates: every loss
+   finite; 30 steps on one repeated batch lower the loss; the first bf16
+   step against the same step in f32 (TF32 off) at batch 16: the loss, the
+   running statistics and the update; remat block gives the first-step
+   loss of none and a lower peak. ``[train_driver]``: ``train.fit`` over
+   in-memory train (256 frames), val and test (64 + 37 each) splits for 2
+   epochs of 3 batches into a temporary experiment: ``0000.params``,
+   ``0001.params`` and ``scores.txt`` written and read back bit for bit as
+   saved, momentum included; each evaluation (2 val passes and the final
+   test) 58 dense launches a forward split by the route, its first batch's
+   logits against the plain-version forward of a model loaded with that
+   epoch's weights, and (val) nearer them than those of the weights before
+   (lr 0.01, so a stale BN fold would show); the final test on the best
+   epoch's weights; resuming
+   from ``0000.params`` and taking epoch 1's first step gives the
+   uninterrupted run's parameters;
 5. GRU kernels vs plain version: ``gru_recurrence`` against
    ``gru_recurrence_reference`` in f32, both kernels (``"async"`` at every
    cluster size that takes the shape, and ``"barrier"`` where it fits), at
@@ -140,6 +164,25 @@ EXTRACT_FRAMES = 32 * EXTRACT_BATCH + 37
 EXTRACT_DISTINCT = 256
 PROFILE_BATCHES = 4
 POOL_BATCH, POOL_WINDOW = 2, 8
+# training: the driver's --batch_size and default optimizer; the f32
+# comparison at a smaller batch, to hold two models' activations at once
+TRAIN_BATCH = 64
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_PROFILED = 3, 20, 2
+OVERFIT_STEPS = 30
+F32_BATCH = 16
+# bf16 against f32, first step (PERF.md, Findings): relative loss, worst
+# running statistic over max |f32 statistic|, global relative L2 of the
+# update. The update's bound is O(1): at random weights bf16 rounding moves
+# the gradients of a deep DenseNet by O(1) in the JAX package too (tests/
+# test_torch_train_densenet.py holds the port's gap to the JAX package's)
+TRAIN_LOSS_TOL, TRAIN_STATS_TOL, TRAIN_UPDATE_TOL = 2e-2, 5e-2, 1.0
+REMAT_LOSS_TOL = 2 ** -7  # one bf16 step, relative
+# the driver: 2 epochs of DRIVER_BATCHES steps over DRIVER_TRAIN frames;
+# val and test of a full and a ragged batch; a resumed step's parameters
+# within RESUME_TOL of the uninterrupted run's, relative to that step's
+# own update (global L2; cuDNN's backward sums in a varying order)
+DRIVER_TRAIN, DRIVER_EVAL, DRIVER_BATCHES = 256, EXTRACT_BATCH + 37, 3
+RESUME_TOL = 2e-2
 
 # (name, T, batch, H, valid lengths): the 0102 serving shape, the lengths of
 # the measured /caption batch (all end before T), --num_hidden 512, the
@@ -797,15 +840,19 @@ def main_path_phase(dev):
 
 
 class MemorySplit:
-    """An in-memory split with what the loader and ``save_features`` read of
-    a TennisSet: ``len``, ``(img, label, idx)`` items, ``save_feature_path``
-    and the split name. Item i is frame ``i % len(frames)`` (so host memory
-    stays bounded) with label ``i % 11``; ``window`` > 1 makes item i a clip
-    of that many consecutive frames."""
+    """An in-memory split with what the loader, ``save_features`` and
+    ``train.fit`` read of a TennisSet: ``len``, ``(img, label, idx)`` items,
+    ``save_feature_path``, ``classes`` and the split name. Item i is frame
+    ``i % len(frames)`` (so host memory stays bounded) with label
+    ``i % 11``; ``window`` > 1 makes item i a clip of that many consecutive
+    frames."""
 
     def __init__(self, frames, n, feat_dir, split, window=1):
+        from tennis_torch.data.tennis_set import DEFAULT_CLASSES
+
         self.frames, self.n, self.feat_dir = frames, n, feat_dir
         self._split, self.window = split, window
+        self.classes = list(DEFAULT_CLASSES)
 
     def __len__(self):
         return self.n
@@ -1038,6 +1085,347 @@ def evaluate_phase(dev, model, frames):
         raise SystemExit("evaluation failed its gates")
     total = {v: by_variant[v] + pool_by_variant[v] for v in by_variant}
     return total
+
+
+def train_flops(batch, side=DATA_SHAPE, blocks=(6, 12, 24, 16), classes=11):
+    """Model FLOPs of one DenseNet121 train step, counted from the layer
+    shapes: every convolution and the head three times its forward
+    (forward, input gradient, weight gradient), the stem's twice (its input
+    needs no gradient); a remat's recomputation is not counted."""
+    s = side // 2
+    stem = 2 * batch * s * s * 64 * 3 * 49
+    s //= 2
+    rest, channels = 0, 64
+    for i, n in enumerate(blocks):
+        for j in range(n):
+            rest += 2 * batch * s * s * ((channels + 32 * j) * 128 + 9 * 128 * 32)
+        channels += 32 * n
+        if i != len(blocks) - 1:
+            rest += 2 * batch * s * s * channels * (channels // 2)
+            channels //= 2
+            s //= 2
+    k = min(7, s)
+    rest += 2 * batch * channels * (s // k) ** 2 * classes
+    return 2 * stem + 3 * rest
+
+
+def train_inputs(dev, frames, seed):
+    """Seeded random weights (flax naming) of FrameModel(DenseNet121, 11) at
+    512^2, ``frames`` on the device, and labels."""
+    from tennis_torch.bridge import to_flax
+    from tennis_torch.inference import build_frame_model
+
+    rng = np.random.default_rng(seed)
+    tree = random_flax_tree(to_flax(build_frame_model(
+        "DenseNet121", 11, DATA_SHAPE)), rng)
+    images = torch.from_numpy(frames).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 11, len(frames))).to(dev)
+    return tree, images, labels
+
+
+def train_state(dev, tree, remat=None, dtype=torch.bfloat16, lr=0.001):
+    """A fresh train state of ``tree``'s weights on ``dev`` with the
+    driver's default optimizer (at ``lr``), and its step (the device augment
+    first)."""
+    from tennis_torch.bridge import load_flax
+    from tennis_torch.data.transforms import device_augment
+    from tennis_torch.inference import build_frame_model
+    from tennis_torch.parallel.train_step import create_train_state, \
+        make_train_step, sgd_with_schedule
+
+    model = build_frame_model("DenseNet121", 11, DATA_SHAPE, dtype=dtype,
+                              remat=remat)
+    load_flax(model, tree).to(dev)
+    tx, _ = sgd_with_schedule(lr, 0.9, 1e-4, (10, 20), 0.75,
+                              DRIVER_TRAIN // TRAIN_BATCH)
+    state = create_train_state(model, tx)
+    step = make_train_step(state, lambda x, g: device_augment(x, g, dtype),
+                           rng_seed=SEED + 123)
+    return state, step
+
+
+def train_phase(dev, frames):
+    """The train step at full width: DenseNet121 at 512^2, batch 64, with
+    remat none and block; its gates against f32 and between the modes."""
+    tree, images, labels = train_inputs(dev, frames, SEED + 8)
+    n_batches = len(frames) // TRAIN_BATCH
+
+    def batch(i, size=TRAIN_BATCH):
+        lo = i % n_batches * size
+        return images[lo:lo + size], labels[lo:lo + size]
+
+    flops = train_flops(TRAIN_BATCH)
+    modes, all_finite = {}, True
+    for remat in (None, "block"):
+        state, step = train_state(dev, tree, remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+            t0 = time.perf_counter()
+            loss, _ = step(*batch(i))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        walls = []
+
+        def profiled():
+            t = time.perf_counter()
+            for i in range(TRAIN_PROFILED):
+                step(*batch(i))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+
+        by_name = device_profile(profiled)
+        busy_ms = sum(v[0] for k, v in by_name.items()
+                      if not k.startswith(("Memcpy", "Memset")))
+        timed = times[TRAIN_WARMUP:]
+        med = statistics.median(timed)
+        finite = bool(np.isfinite(losses).all())
+        all_finite = all_finite and finite
+        modes[remat or "none"] = {
+            "first_loss": losses[0], "peak_gib": peak_gib, "step_ms": med}
+        log("train", remat=remat or "none", batch=TRAIN_BATCH,
+            data_shape=DATA_SHAPE, steps=len(losses), timed_steps=len(timed),
+            step_ms=med, step_ms_min=min(timed), step_ms_max=max(timed),
+            step_ms_spread=(max(timed) - min(timed)) / med,
+            samples_per_s=TRAIN_BATCH / med * 1e3,
+            device_busy_ms_per_step=busy_ms / TRAIN_PROFILED,
+            idle_share=1 - busy_ms / walls[-1],
+            profiled_wall_ms_per_step=walls[-1] / TRAIN_PROFILED,
+            device_launches_per_step=sum(v[1] for v in by_name.values())
+            / TRAIN_PROFILED,
+            top=[[k[:60], v[0] / TRAIN_PROFILED, v[1] // TRAIN_PROFILED]
+                 for k, v in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:10]],
+            peak_mem_gib=peak_gib, model_gflop_per_step=flops / 1e9,
+            mfu=flops / (med / 1e3) / PEAK_BF16_FLOPS,
+            first_losses=losses[:4], last_loss=losses[-1], losses_finite=finite)
+        del state, step, by_name
+
+    # 30 steps on one repeated batch (a new augment draw each step)
+    state, step = train_state(dev, tree)
+    overfit = [step(*batch(0))[0].item() for _ in range(OVERFIT_STEPS)]
+    del state, step
+    lowered = statistics.mean(overfit[-5:]) < statistics.mean(overfit[:5])
+
+    # the first step in bf16 against the same step in f32, at F32_BATCH
+    x, y = batch(0, F32_BATCH)
+    runs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        state, step = train_state(dev, tree, dtype=dtype)
+        names = [n for n, _ in state.model.named_parameters()]
+        before = [p.detach().clone() for p in state.model.parameters()]
+        loss, _ = step(x, y)
+        runs[dtype] = (loss.item(), [p.detach() - b for p, b in zip(
+            state.model.parameters(), before)],
+            [b.clone() for b in state.model.buffers()])
+        del state, step, before
+    (loss_b, upd_b, stats_b), (loss_f, upd_f, stats_f) = \
+        runs[torch.bfloat16], runs[torch.float32]
+    loss_rel = abs(loss_b - loss_f) / abs(loss_f)
+    stats_rel = max(((a - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip(stats_b, stats_f))
+    diff = torch.cat([(a - b).flatten() for a, b in zip(upd_b, upd_f)])
+    update_rel = (diff.norm() / torch.cat(
+        [b.flatten() for b in upd_f]).norm()).item()
+    head = [(a - b).norm() / b.norm() for n, a, b in zip(names, upd_b, upd_f)
+            if n.startswith("classes.")]
+    remat_rel = abs(modes["block"]["first_loss"] - modes["none"]["first_loss"]) \
+        / abs(modes["none"]["first_loss"])
+    ok = (all_finite and lowered and loss_rel <= TRAIN_LOSS_TOL
+          and stats_rel <= TRAIN_STATS_TOL and update_rel <= TRAIN_UPDATE_TOL
+          and remat_rel <= REMAT_LOSS_TOL
+          and modes["block"]["peak_gib"] < modes["none"]["peak_gib"])
+    log("train_check", losses_finite=all_finite, overfit_losses=overfit,
+        overfit_lowered=lowered, f32_batch=F32_BATCH, loss_bf16=loss_b,
+        loss_f32=loss_f, loss_rel=loss_rel, loss_tol=TRAIN_LOSS_TOL,
+        running_stats_rel=stats_rel, stats_tol=TRAIN_STATS_TOL,
+        update_rel_l2=update_rel, update_tol=TRAIN_UPDATE_TOL,
+        head_update_rel_l2=max(h.item() for h in head),
+        remat_first_loss_rel=remat_rel, remat_tol=REMAT_LOSS_TOL,
+        peak_gib={k: v["peak_gib"] for k, v in modes.items()}, ok=ok)
+    if not ok:
+        raise SystemExit("the train step failed its gates")
+
+
+def train_driver_phase(dev, frames):
+    """``train.fit`` over in-memory splits: 2 epochs of DRIVER_BATCHES
+    steps, val after each, the best epoch reloaded and tested; the epoch
+    files, each evaluation's kernel launches and logits, and a resumed step
+    against the uninterrupted run. Returns the evaluations' dense launches
+    by variant."""
+    import tempfile
+    from unittest import mock
+
+    from tennis_torch import inference
+    from tennis_torch import train as driver
+    from tennis_torch.bridge import load_flax, state_from_flax
+    from tennis_torch.data.loader import DataLoader
+    from tennis_torch.inference import build_frame_model
+    from tennis_torch.ops import dense_block as db
+    from tennis_torch.parallel import train_step as ts
+    from tennis_torch.utils import checkpoint as ckpt
+    from tennis_torch.utils import msgpack_codec
+
+    tree, _, _ = train_inputs(dev, frames[:1], SEED + 9)
+    model = build_frame_model("DenseNet121", 11, DATA_SHAPE)
+    load_flax(model, tree)
+    # lr 0.01: the weights move between evaluations by more than the
+    # kernels' distance to the plain version, so a stale fold would show
+    args = driver.parse_args([
+        "--backbone=DenseNet121", f"--batch_size={TRAIN_BATCH}", "--epochs=2",
+        f"--max_batches={DRIVER_BATCHES}", "--log_interval=1", "--lr=0.01"])
+    splits = {"train": MemorySplit(frames, DRIVER_TRAIN, None, "train"),
+              "val": MemorySplit(frames[::-1], DRIVER_EVAL, None, "val"),
+              "test": MemorySplit(frames[1:], DRIVER_EVAL, None, "test")}
+    loaders = {k: DataLoader(ds, TRAIN_BATCH, shuffle=k == "train",
+                             seed=args.seed, num_workers=8,
+                             drop_last=k == "train")
+               for k, ds in splits.items()}
+
+    passes, saved, epoch1_first = [], [], {}
+    make_eval_step, make_train_step = inference.make_eval_step, \
+        ts.make_train_step
+    save = ckpt.AsyncCheckpointer.save
+
+    def plain_logits(weights, x):
+        """The plain-version forward of a model loaded afresh with
+        ``weights``: its BN folded from them, whatever any step cached."""
+        from tennis_torch.data.transforms import device_prepare
+
+        ref = build_frame_model("DenseNet121", 11, DATA_SHAPE)
+        ref.load_state_dict(weights)
+        ref.to(dev)
+        with torch.inference_mode():
+            return db.frame_model_apply(ref, device_prepare(x, ref.dtype),
+                                        layer=db.dense_layer_reference)
+
+    def rel(got, want):
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    previous = {"weights": {k: v.clone() for k, v in
+                            model.state_dict().items()}}
+
+    def recording_eval_step(m, device, **kw):
+        """The driver's eval step, recording each pass's launches, and its
+        first batch's logits against the plain-version forward of the
+        current weights and of the weights of the evaluation before (the
+        initial ones for the first)."""
+        step = make_eval_step(m, device, **kw)
+        record = {"launches": dict.fromkeys(db.ROUTES, 0), "batches": []}
+        passes.append(record)
+
+        def wrapped(x):
+            before = dict(db.dense_layer.variant_launches)
+            out = step(x)
+            for v, n in db.dense_layer.variant_launches.items():
+                record["launches"][v] += n - before[v]
+            record["batches"].append(len(x))
+            if "rel_err" not in record:
+                weights = {k: v.clone() for k, v in m.state_dict().items()}
+                want = plain_logits(weights, x)
+                record["rel_err"] = rel(out, want)
+                record["previous_weights_rel_err"] = rel(
+                    out, plain_logits(previous["weights"], x))
+                record["top1_agrees"] = bool(
+                    (out.argmax(-1) == want.argmax(-1)).all())
+                previous["weights"] = weights
+            return out
+
+        return wrapped
+
+    def recording_train_step(state, *a, **kw):
+        step = make_train_step(state, *a, **kw)
+
+        def wrapped(images, labels):
+            out = step(images, labels)
+            if state.step == DRIVER_BATCHES + 1:  # epoch 1's first step
+                epoch1_first["params"] = [p.detach().clone() for p in
+                                          state.model.parameters()]
+                epoch1_first["batch"] = (images.clone(), np.asarray(labels))
+            return out
+
+        return wrapped
+
+    def recording_save(self, path, tree):
+        saved.append((path, tree))
+        return save(self, path, tree)
+
+    with tempfile.TemporaryDirectory() as exp_dir:
+        with mock.patch.object(inference, "make_eval_step",
+                               recording_eval_step), \
+                mock.patch.object(ts, "make_train_step",
+                                  recording_train_step), \
+                mock.patch.object(ckpt.AsyncCheckpointer, "save",
+                                  recording_save):
+            reset_dense_counts(db)
+            t0 = time.perf_counter()
+            state, test_metrics = driver.fit(args, model, loaders, exp_dir,
+                                             dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(db.dense_layer.variant_launches)
+        files = sorted(f for f in os.listdir(exp_dir) if f != "tb")
+        # the files read back as they were saved, momentum included
+        identical = len(saved) == 2
+        for path, snapshot in saved:
+            identical = identical and msgpack_codec.serialize(
+                ckpt.load_raw(path)) == msgpack_codec.serialize(snapshot)
+        best = ckpt.best_epoch(exp_dir)
+        want = driver_state_dict(ckpt.load_raw(ckpt.epoch_path(exp_dir,
+                                                               best[0])))
+        tested_best = all(np.array_equal(t.cpu().numpy(), want[k])
+                          for k, t in state.model.state_dict().items())
+        # resume from epoch 0, take epoch 1's first step
+        resumed, step = train_state(dev, tree, lr=args.lr)
+        state_from_flax(resumed, ckpt.load_raw(ckpt.epoch_path(exp_dir, 0)))
+        prev = [p.detach().clone() for p in resumed.model.parameters()]
+        step(*epoch1_first["batch"])
+        num = sum(((p - q) ** 2).sum() for p, q in zip(
+            resumed.model.parameters(), epoch1_first["params"]))
+        den = sum(((q - r) ** 2).sum() for q, r in zip(
+            epoch1_first["params"], prev))
+        resume_rel = (num.sqrt() / den.sqrt()).item()
+
+    full, ragged = divmod(DRIVER_EVAL, TRAIN_BATCH)
+    want_pass = {v: full * n + routed_launches(db, ragged)[v]
+                 for v, n in routed_launches(db, TRAIN_BATCH).items()}
+    # the val passes (not the test, whose best-epoch weights may be the last
+    # val's) are nearer their own epoch's weights than the previous ones
+    passes_ok = len(passes) == 3 and all(
+        r["launches"] == want_pass and r["rel_err"] <= LOGIT_TOL
+        and r["top1_agrees"] for r in passes) and all(
+        r["rel_err"] < r["previous_weights_rel_err"] for r in passes[:2])
+    want_total = {v: 3 * n for v, n in want_pass.items()}
+    ok = (files == ["0000.params", "0001.params", "scores.txt"]
+          and identical and passes_ok and launches == want_total
+          and tested_best and resume_rel <= RESUME_TOL
+          and state.step in (DRIVER_BATCHES, 2 * DRIVER_BATCHES))
+    log("train_driver", epochs=2, steps_per_epoch=DRIVER_BATCHES,
+        batch=TRAIN_BATCH, files=files, saved_read_back_identical=identical,
+        evaluations=[{k: r[k] for k in (
+            "launches", "batches", "rel_err", "previous_weights_rel_err",
+            "top1_agrees")} for r in passes],
+        routed_launches_per_evaluation=want_pass, launches=launches,
+        best_epoch=best[0], test_on_best_weights=tested_best,
+        test_AVG_NB_f1=test_metrics["prf1"].get_dict()["AVG_NB_f1"],
+        resume_first_step_rel=resume_rel, resume_tol=RESUME_TOL,
+        logit_tol=LOGIT_TOL, wall_s=wall, ok=ok)
+    if not ok:
+        raise SystemExit("the training driver failed its gates")
+    return launches
+
+
+def driver_state_dict(tree):
+    """A train-state tree's parameters and statistics as a torch state
+    dict of numpy arrays."""
+    from tennis_torch.bridge import from_flax
+
+    return {k: v.numpy() for k, v in from_flax(
+        {"params": tree["params"],
+         "batch_stats": tree["batch_stats"]}).items()}
 
 
 def _round_trip_us(launch):
@@ -1516,7 +1904,7 @@ def dense_entry(name, variant, stack, launches, max_abs):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": sum(r["library_ms"] for r in mine),
         "work": work + "; launches count the /predict batches served and the "
-                       "[extract] and [evaluate] runs",
+                       "[extract], [evaluate] and [train_driver] runs",
     }
 
 
@@ -1575,10 +1963,16 @@ def main() -> int:
     for phase in (extract_phase, evaluate_phase):
         counts = phase(torch.device("cuda"), model, frames)
         launches = {v: launches[v] + counts[v] for v in launches}
-    del model, frames
+    del model
     gru_abs, gru_rows = gru_phase(torch.device("cuda"))
     gru_launches = caption_phase(torch.device("cuda"))
     densenet161_phase(torch.device("cuda"))
+    # last: the train step's profile holds ~10,000 launches a step, and a
+    # later profiler session once recorded no kernel six times in a row
+    train_phase(torch.device("cuda"), frames)
+    counts = train_driver_phase(torch.device("cuda"), frames)
+    launches = {v: launches[v] + counts[v] for v in launches}
+    del frames
     log("route_summary", routed_is_fastest_by_batch={
         b: {"fastest": a, "shapes": n} for b, (a, n) in agree.items()})
 

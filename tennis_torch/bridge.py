@@ -17,6 +17,12 @@ a kernel in HWIO, a ``Linear`` weight a kernel in (in, out), an
 ``Embedding`` weight an embedding table as it is, any other 1-d weight a
 BatchNorm scale.
 
+``state_to_flax`` and ``state_from_flax`` carry a whole train state
+(``parallel.train_step.TrainState``: parameters, BN statistics, the SGD
+momentum traces, the update count and the step) in the layout of the JAX
+package's ``TrainState`` files, so either package resumes the other's
+epochs.
+
 A leaf that matches no rule raises, and loading the result with
 ``load_state_dict`` (strict) raises on a key the module lacks or leaves
 unset.
@@ -75,43 +81,139 @@ def from_flax(variables: dict) -> dict[str, torch.Tensor]:
     return state
 
 
-def to_flax(module: torch.nn.Module) -> dict:
-    """Inverse of :func:`from_flax`: module -> flax tree of numpy arrays."""
+def _host(t: torch.Tensor) -> np.ndarray:
+    """An f32 host copy that shares no memory with ``t``."""
+    return t.detach().to("cpu", torch.float32, copy=True).numpy()
+
+
+def _flax_trees(module: torch.nn.Module, value=None):
+    """(params, batch_stats) flax trees of ``module``'s tensors, or with
+    ``value(name, parameter)`` in place of each parameter (a tensor, or None
+    for an empty leaf: optax's masked node)."""
     params: dict = {}
     stats: dict = {}
 
-    def put(tree, path, value):
+    def put(tree, path, v):
         for k in path[:-1]:
             tree = tree.setdefault(k, {})
-        tree[path[-1]] = value
+        tree[path[-1]] = v
 
     stat_names = {v: k for k, v in _STAT_LEAVES.items()}
     for prefix, sub in module.named_modules():
         mod = prefix.split(".") if prefix else []
-        tensors = list(sub.named_parameters(recurse=False)) + \
-            list(sub.named_buffers(recurse=False))
-        for leaf, t in tensors:
-            arr = t.detach().cpu().float().numpy()
-            if leaf in stat_names:
-                put(stats, mod + [stat_names[leaf]], arr)
-            elif leaf == "bias":
-                put(params, mod + ["bias"], arr)
-            elif leaf != "weight":
+        for leaf, t in sub.named_buffers(recurse=False):
+            if leaf not in stat_names:
                 raise KeyError(f"no flax counterpart for "
                                f"{'.'.join(mod + [leaf])}")
-            elif isinstance(sub, torch.nn.Conv2d):
-                put(params, mod + ["kernel"], arr.transpose(2, 3, 1, 0).copy())
-            elif isinstance(sub, torch.nn.Linear):
-                put(params, mod + ["kernel"], arr.T.copy())
-            elif isinstance(sub, torch.nn.Embedding):
-                put(params, mod + ["embedding"], arr)
-            elif arr.ndim == 1:
-                put(params, mod + ["scale"], arr)
-            else:
-                raise KeyError(f"no flax counterpart for "
-                               f"{'.'.join(mod + [leaf])} of shape "
-                               f"{arr.shape} in a {type(sub).__name__}")
+            put(stats, mod + [stat_names[leaf]], _host(t))
+        for leaf, t in sub.named_parameters(recurse=False):
+            if value is not None:
+                t = value(".".join(mod + [leaf]), t)
+                if t is None:
+                    put(params, mod + [_param_leaf(sub, leaf, mod)], {})
+                    continue
+            put(params, mod + [_param_leaf(sub, leaf, mod)],
+                _param_array(sub, leaf, _host(t)))
+    return params, stats
+
+
+def _param_leaf(sub, leaf, mod) -> str:
+    if leaf == "bias":
+        return "bias"
+    if leaf != "weight":
+        raise KeyError(f"no flax counterpart for {'.'.join(mod + [leaf])}")
+    if isinstance(sub, torch.nn.Conv2d | torch.nn.Linear):
+        return "kernel"
+    if isinstance(sub, torch.nn.Embedding):
+        return "embedding"
+    return "scale"
+
+
+def _param_array(sub, leaf, arr: np.ndarray) -> np.ndarray:
+    if leaf == "weight" and isinstance(sub, torch.nn.Conv2d):
+        return np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+    if leaf == "weight" and isinstance(sub, torch.nn.Linear):
+        return np.ascontiguousarray(arr.T)
+    if leaf == "weight" and not isinstance(sub, torch.nn.Embedding) \
+            and arr.ndim != 1:
+        raise KeyError(f"no flax counterpart for the weight of shape "
+                       f"{arr.shape} of a {type(sub).__name__}")
+    return arr
+
+
+def to_flax(module: torch.nn.Module) -> dict:
+    """Inverse of :func:`from_flax`: module -> flax tree of numpy arrays
+    (host copies)."""
+    params, stats = _flax_trees(module)
     return {"params": params, "batch_stats": stats}
+
+
+def _sorted(tree):
+    """``tree`` with every dict's keys in sorted order, as jitted JAX
+    returns its trees."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def state_to_flax(state) -> dict:
+    """A ``parallel.train_step.TrainState`` as the JAX package's
+    ``TrainState`` goes to disk (``flax.serialization.to_state_dict``):
+    ``{"step", "params", "batch_stats", "opt_state"}``, every leaf a host
+    copy, every dict below the top in sorted order, so that the file's bytes
+    equal the JAX package's for the same values. ``opt_state`` is the optax
+    chain's: ``{"0": {} (add_decayed_weights), "1": {"0": {"trace": the
+    momentum tree}, "1": {"count": updates made}}}``; under
+    ``freeze_backbone`` that chain sits in ``multi_transform``'s
+    ``{"inner_states": {"frozen": {"inner_state": {}}, "train":
+    {"inner_state": chain}}}`` and the backbone's trace leaves are empty
+    (optax's masked nodes)."""
+    params, stats = _flax_trees(state.model)
+    trace, _ = _flax_trees(state.model,
+                           lambda name, _: state.opt_state.trace.get(name))
+    chain = {"0": {}, "1": {"0": {"trace": trace}, "1": {
+        "count": np.asarray(state.opt_state.count, np.int32)}}}
+    if state.freeze_backbone:
+        chain = {"inner_states": {"frozen": {"inner_state": {}},
+                                  "train": {"inner_state": chain}}}
+    return {"step": np.asarray(state.step, np.int32),
+            "params": _sorted(params), "batch_stats": _sorted(stats),
+            "opt_state": _sorted(chain)}
+
+
+def state_from_flax(state, tree: dict) -> None:
+    """Load a JAX ``TrainState`` tree (a file the JAX package or
+    :func:`state_to_flax` wrote, through ``load_raw``) into ``state`` in
+    place: parameters and BN statistics, the momentum traces through the
+    same transposes as the parameters, the update count and the step. A tree
+    of another model, or of the other ``freeze_backbone`` setting, raises
+    ``KeyError``/``ValueError``/``RuntimeError``."""
+    unknown = set(tree) ^ {"step", "params", "batch_stats", "opt_state"}
+    if unknown:
+        raise KeyError(f"not a train state: keys {sorted(unknown)} differ")
+    chain = tree["opt_state"]
+    if state.freeze_backbone:
+        inner = chain.get("inner_states", {})
+        if set(inner) != {"frozen", "train"}:
+            raise KeyError("not a --freeze_backbone optimizer state")
+        chain = inner["train"]["inner_state"]
+    if set(chain) != {"0", "1"} or set(chain["1"]) != {"0", "1"}:
+        raise KeyError(f"not an SGD optimizer state: keys {sorted(chain)}")
+    trace = from_flax({"params": chain["1"]["0"]["trace"]})
+    if set(trace) != set(state.opt_state.trace):
+        raise KeyError(f"the momentum traces differ from the model's: "
+                       f"{sorted(set(trace) ^ set(state.opt_state.trace))}")
+    load_flax(state.model, {"params": tree["params"],
+                            "batch_stats": tree["batch_stats"]})
+    with torch.no_grad():
+        for name, t in state.opt_state.trace.items():
+            if t.shape != trace[name].shape:
+                raise ValueError(f"momentum of {name}: shape "
+                                 f"{tuple(trace[name].shape)}, want "
+                                 f"{tuple(t.shape)}")
+            t.copy_(trace[name])
+    state.opt_state.count = int(chain["1"]["1"]["count"])
+    state.step = int(tree["step"])
 
 
 def load_flax(module: torch.nn.Module, variables: dict) -> torch.nn.Module:

@@ -39,14 +39,15 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 
 
 def build_frame_model(backbone: str, num_classes: int, data_shape: int,
-                      dtype=torch.bfloat16,
+                      dtype=torch.bfloat16, remat: str | None = None,
                       generator: torch.Generator | None = None):
     """``FrameModel(get_backbone(backbone))`` with its head sized for square
-    ``data_shape`` inputs."""
+    ``data_shape`` inputs; ``remat`` as the backbone takes it."""
     from tennis_torch.models import FrameModel, backbone_feature_dim, \
         get_backbone
 
-    return FrameModel(get_backbone(backbone, dtype=dtype, generator=generator),
+    return FrameModel(get_backbone(backbone, dtype=dtype, remat=remat,
+                                   generator=generator),
                       num_classes=num_classes, dtype=dtype,
                       feature_dim=backbone_feature_dim(backbone, data_shape),
                       generator=generator)
@@ -112,7 +113,10 @@ def make_eval_step(model, device: torch.device, pool: str | None = None,
     ``device_prepare`` first. With ``pool`` ("max" or "mean") the step is the
     ``TemporalPooling(wrap_head=True)`` wrap: the backbone features of each
     clip's frames in one forward (or, with ``feats``, (B, T, F) features as
-    given) pooled over T, then the model's own head."""
+    given) pooled over T, then the model's own head. The fold is of the
+    weights at this call: after they change, make the step anew (the
+    trainer does before every val and test pass; a train-mode forward also
+    drops the fold, so a stale one is never reused)."""
     from tennis_torch.data.transforms import device_prepare
     from tennis_torch.models import TemporalPooling
 

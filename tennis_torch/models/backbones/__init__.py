@@ -28,10 +28,12 @@ def _densenet_spec(name: str):
 
 
 def get_backbone(name: str, in_channels: int = 3, dtype=torch.bfloat16,
+                 remat: str | None = None,
                  generator: torch.Generator | None = None) -> DenseNet:
-    """Build a feature-extractor backbone by gluoncv-style name."""
+    """Build a feature-extractor backbone by gluoncv-style name; ``remat``
+    is the train-mode rematerialization (None, "block", "hires", "growth")."""
     return DenseNet(_densenet_spec(name), dtype=dtype,
-                    in_channels=in_channels, generator=generator)
+                    in_channels=in_channels, remat=remat, generator=generator)
 
 
 def backbone_feature_dim(name: str, data_shape: int = 512) -> int:

@@ -1,4 +1,4 @@
-"""DenseNet-BC in NHWC, eval mode, for PyTorch.
+"""DenseNet-BC in NHWC for PyTorch, eval and train mode.
 
 Counterpart of ``tennis_tpu/models/backbones/densenet.py`` (the gluoncv
 DenseNet121 backbone of the reference's models 0006/0042/0102) in its
@@ -6,12 +6,27 @@ concatenating formulation, with the same parameter names: ``conv0``, ``bn0``,
 ``block{i}_layer{j}.{bn1,conv1,bn2,conv2}``, ``transition{i}.{bn,conv}``,
 ``bn_final``. Parameters and BN statistics are f32; compute runs in ``dtype``.
 
-The forward goes through :func:`tennis_torch.ops.dense_block.densenet_features`:
-every dense layer through the dense-layer kernel, the stem, transitions and
-head as plain torch ops. DenseNet161's layers (bottleneck 192, growth 48),
-which no TPU kernel computes, take ``dense_layer_convs`` instead: the route
-decides by width. Train mode, ``remat`` and ``concat_free`` are not ported
-yet.
+The eval forward (``train=False``) goes through
+:func:`tennis_torch.ops.dense_block.densenet_features`: every dense layer
+through the dense-layer kernel, the stem, transitions and head as plain torch
+ops. DenseNet161's layers (bottleneck 192, growth 48), which no TPU kernel
+computes, take ``dense_layer_convs`` instead: the route decides by width.
+
+The train forward (``train=True``) is the flax module's, in plain torch ops
+under autograd (the JAX package also trains through its module, never
+through the Pallas kernel): batch statistics, and the running ones updated
+once per forward as ``0.99 old + 0.01 batch``, the variance the biased
+E[x^2] - E[x]^2 in f32. The rounding points follow the flax modules:
+``bn1``, the transitions and ``bn_final`` (``_SlicedBNRelu``) fold
+(inv, shift) in f32 and normalize and ReLU in the compute dtype; ``bn0``
+and ``bn2`` (``nn.BatchNorm``) normalize in f32 and round once. Each BN
+with its ReLU is one :class:`_BatchNormReLU`, whose backward works in f32
+and keeps no f32 copy of an activation. ``remat`` is the JAX
+option: ``"block"`` checkpoints every dense block, ``"hires"`` the first
+two, ``"growth"`` keeps only each layer's growth output (every layer
+checkpointed over the list of the block's parts, so its concatenated input
+is rebuilt, and its conv2 skipped, in the backward). ``concat_free`` is not
+ported.
 """
 from __future__ import annotations
 
@@ -20,7 +35,9 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tennis_torch.ops.dense_block import densenet_features, layer_operands, \
     fold_bn
@@ -60,13 +77,79 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int,
                                      generator=generator)
 
 
-class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm parameters (flax ``nn.BatchNorm``, eps 1e-5):
-    ``weight``/``bias`` and ``running_mean``/``running_var``."""
+REMAT_MODES = (None, "block", "hires", "growth")
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+
+class _BatchNormReLU(torch.autograd.Function):
+    """Train-mode BatchNorm + ReLU over the last axis of ``x``, as the flax
+    modules compute it, with a backward of its own.
+
+    Forward: the batch mean and E[x^2] in at least f32, ``var = E[x^2] -
+    mean^2`` (clipped at 0 for ``nn.BatchNorm``, not for
+    ``_SlicedBNRelu``), ``mul = rsqrt(var + eps) * weight``, ``shift = bias
+    - mean * mul``; then ``relu(x * mul + shift)`` in x's dtype: with
+    ``sliced`` the affine is rounded to that dtype first (``_SlicedBNRelu``),
+    else it is applied in f32 and the result rounded once
+    (``nn.BatchNorm``). Returns (y, mean, var); the statistics are for the
+    running update and take no gradient.
+
+    Backward: the chain rule of those same ops (through the statistics to
+    x, and to weight and bias), every term in f32 and x's gradient rounded
+    once, where autograd over the ops would round each path's part to bf16
+    and then add the parts, which nearly cancel. Only x (as it is), y and
+    per-channel vectors are kept: no f32 copy of an activation."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, sliced):
+        acc = torch.promote_types(x.dtype, torch.float32)
+        dims = tuple(range(x.dim() - 1))
+        xf = x.to(acc)
+        mean = xf.mean(dims)
+        var = xf.square().mean(dims) - mean * mean
+        del xf
+        live = var > 0 if not sliced else torch.ones_like(var, dtype=torch.bool)
+        if not sliced:
+            var = torch.clamp(var, min=0.0)
+        rstd = torch.rsqrt(var + eps)
+        mul = rstd * weight
+        shift = bias - mean * mul
+        if sliced:
+            y = torch.addcmul(shift.to(x.dtype), x, mul.to(x.dtype))
+        else:
+            y = torch.addcmul(shift, x, mul).to(x.dtype)
+        y = torch.relu_(y)
+        ctx.save_for_backward(x, y, weight, mean, rstd, mul, live)
+        ctx.sliced = sliced
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        x, y, weight, mean, rstd, mul, live = ctx.saved_tensors
+        dims = tuple(range(x.dim() - 1))
+        n = x.numel() // x.shape[-1]
+        acc = mean.dtype
+        g = torch.where(y > 0, dy, 0).to(acc)
+        xf = x.to(acc)
+        d_shift = g.sum(dims)
+        d_mul = (g * xf).sum(dims) - mean * d_shift
+        d_mean = -mul * d_shift
+        d_var = torch.where(live, -0.5 * rstd ** 3 * weight * d_mul, 0.0)
+        d_mean = d_mean - 2 * mean * d_var
+        m = mul.to(x.dtype).to(acc) if ctx.sliced else mul
+        dx = g * m + (d_mean / n + xf * (2 * d_var / n))
+        return dx.to(x.dtype), d_mul * rstd, d_shift, None, None
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm parameters (flax ``nn.BatchNorm``, eps 1e-5, momentum
+    0.99): ``weight``/``bias`` and ``running_mean``/``running_var``."""
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.99):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -78,11 +161,42 @@ class BatchNorm(nn.Module):
     def fold(self):
         return fold_bn(*self.stats(), eps=self.eps)
 
+    @torch.no_grad()
+    def update_stats(self, mean, var):
+        """The running update of one train-mode forward (f32)."""
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
+
+    def train_relu(self, x, stats: list, sliced: bool):
+        """Train mode: ``relu(BN(x))`` in x's dtype with the batch
+        statistics (:class:`_BatchNormReLU`): ``sliced`` for
+        ``_SlicedBNRelu`` (bn1, the transitions, bn_final), else flax
+        ``nn.BatchNorm`` (bn0, bn2). Appends ``(self, mean, var)`` to
+        ``stats`` for the running update."""
+        y, mean, var = _BatchNormReLU.apply(x, self.weight, self.bias,
+                                            self.eps, sliced)
+        stats.append((self, mean, var))
+        return y
+
 
 def _conv(c_in: int, c_out: int, k: int, generator) -> nn.Conv2d:
     conv = nn.Conv2d(c_in, c_out, k, bias=False)
     lecun_normal_(conv.weight, c_in * k * k, generator)
     return conv
+
+
+def _nchw(x):
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+def _matmul_1x1(x, conv: nn.Conv2d, dtype):
+    """A 1x1 convolution of NHWC ``x`` as one GEMM in ``dtype``."""
+    return x @ conv.weight[:, :, 0, 0].t().to(dtype)
 
 
 class _DenseLayer(nn.Module):
@@ -93,6 +207,22 @@ class _DenseLayer(nn.Module):
         self.bn2 = BatchNorm(bn_size * growth)
         self.conv2 = _conv(bn_size * growth, growth, 3, generator)
 
+    def train_growth(self, state, dtype):
+        """Train mode: the (B, H, W, G) growth part of the NHWC ``state``,
+        and the layer's ``(bn, mean, var)`` statistics."""
+        stats: list = []
+        h = _matmul_1x1(self.bn1.train_relu(state, stats, sliced=True),
+                        self.conv1, dtype)
+        h = self.bn2.train_relu(h, stats, sliced=False)
+        h = F.conv2d(_nchw(h), self.conv2.weight.to(dtype), padding=1)
+        return _nhwc(h), stats
+
+    def train_growth_from_parts(self, *parts, dtype):
+        """:meth:`train_growth` over the concatenation of ``parts``, the
+        concatenation made inside (remat ``"growth"``)."""
+        state = torch.cat(parts, -1) if len(parts) > 1 else parts[0]
+        return self.train_growth(state, dtype)
+
 
 class _Transition(nn.Module):
     def __init__(self, c_in: int, c_out: int, generator):
@@ -100,16 +230,24 @@ class _Transition(nn.Module):
         self.bn = BatchNorm(c_in)
         self.conv = _conv(c_in, c_out, 1, generator)
 
+    def train_forward(self, x, dtype, stats: list):
+        h = _matmul_1x1(self.bn.train_relu(x, stats, sliced=True), self.conv,
+                        dtype)
+        return _nhwc(F.avg_pool2d(_nchw(h), 2, stride=2))
+
 
 class DenseNet(nn.Module):
     """Feature extractor: (B, H, W, C) prepared input -> (B, F) features."""
 
     def __init__(self, spec: DenseNetSpec, dtype=torch.bfloat16,
-                 in_channels: int = 3,
+                 in_channels: int = 3, remat: str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
+        if remat not in REMAT_MODES:
+            raise ValueError(f"unknown remat mode {remat!r}")
         self.spec = spec
         self.dtype = dtype
+        self.remat = remat
         self.conv0 = _conv(in_channels, spec.num_init_features, 7, generator)
         self.bn0 = BatchNorm(spec.num_init_features)
         channels = spec.num_init_features
@@ -157,5 +295,63 @@ class DenseNet(nn.Module):
                 "layers": layers, "transitions": transitions,
                 "bn_final": self.bn_final.fold()}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            return self.train_features(x)
         return densenet_features(self.spec, self.operands(), x, self.dtype)
+
+    def _block(self, x, i: int, dtype):
+        """Train mode: dense block ``i`` over NHWC ``x``, concatenating each
+        growth part onto the state; (state, statistics)."""
+        stats: list = []
+        for j in range(self.spec.block_config[i]):
+            growth, s = getattr(self, f"block{i}_layer{j}").train_growth(
+                x, dtype)
+            stats += s
+            x = torch.cat([x, growth], -1)
+        return x, stats
+
+    def _block_growth(self, x, i: int, dtype):
+        """Train mode, remat ``"growth"``: each layer checkpointed over the
+        block's parts, so only the parts (the block input and the growth
+        outputs) are kept for the backward."""
+        parts, stats = [x], []
+        for j in range(self.spec.block_config[i]):
+            layer = getattr(self, f"block{i}_layer{j}")
+            growth, s = checkpoint(layer.train_growth_from_parts, *parts,
+                                   dtype=dtype, use_reentrant=False)
+            stats += s
+            parts.append(growth)
+        return torch.cat(parts, -1), stats
+
+    def train_features(self, x: torch.Tensor) -> torch.Tensor:
+        """The flax module's ``apply(train=True)``: (B, H, W, C) prepared
+        input -> (B, F) features in the compute dtype, under autograd. The
+        running statistics are updated once, after the forward (a
+        checkpointed block's recomputation in the backward updates none).
+        The folded eval operands are dropped: the weights are about to
+        change."""
+        self._operands = None
+        dt = self.dtype
+        stats: list = []
+        x = _nhwc(F.conv2d(_nchw(x.to(dt)), self.conv0.weight.to(dt),
+                           stride=2, padding=3))
+        x = self.bn0.train_relu(x, stats, sliced=False)
+        x = _nhwc(F.max_pool2d(_nchw(x), 3, stride=2, padding=1))
+        last = len(self.spec.block_config) - 1
+        for i in range(last + 1):
+            if self.remat == "growth":
+                x, s = self._block_growth(x, i, dt)
+            elif self.remat == "block" or (self.remat == "hires" and i < 2):
+                x, s = checkpoint(self._block, x, i, dt, use_reentrant=False)
+            else:
+                x, s = self._block(x, i, dt)
+            stats += s
+            if i != last:
+                x = getattr(self, f"transition{i}").train_forward(x, dt, stats)
+        x = self.bn_final.train_relu(x, stats, sliced=True)
+        k = min(7, x.shape[1])
+        x = _nhwc(F.avg_pool2d(_nchw(x), k, stride=k))
+        for bn, mean, var in stats:
+            bn.update_stats(mean, var)
+        return x.reshape(x.shape[0], -1)

@@ -33,7 +33,8 @@ class FrameModel(nn.Module):
 
     ``num_classes > 0`` adds the head, computed in ``dtype`` with f32 logits
     out; otherwise the f32 backbone features are the output. ``features`` and
-    ``head`` expose the two halves, as in the JAX module.
+    ``head`` expose the two halves, as in the JAX module. ``train=True`` runs
+    the backbone in train mode (batch statistics, under autograd).
     """
 
     def __init__(self, backbone: nn.Module, num_classes: int = -1,
@@ -50,11 +51,11 @@ class FrameModel(nn.Module):
             lecun_normal_(self.classes.weight, feature_dim, generator)
             nn.init.zeros_(self.classes.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.head(self.features(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.head(self.features(x, train=train))
 
-    def features(self, x: torch.Tensor) -> torch.Tensor:
-        return self.backbone(x)
+    def features(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.backbone(x, train=train)
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """Trained classification head over (pooled) backbone features."""

@@ -1,11 +1,23 @@
-"""Event-classifier driver (counterpart of ``tennis_tpu/train.py``), eval
-modes only.
+"""Event-classifier driver (counterpart of ``tennis_tpu/train.py``).
 
 The flags are the JAX driver's, with the same names and defaults, parsed
 with argparse (absl booleans take ``--name``, ``--name=false`` and
 ``--noname``), plus ``--device`` (``cuda`` by default; asking for it without
-a GPU raises). Two invocations run, neither of which trains:
+a GPU raises). Three invocations run:
 
+- training (the default) of a framewise DenseNet classifier
+  (:func:`fit`): the balanced train split through the random train
+  geometry (``ThreadLocalRng(seed + 1)``), a shuffled ``drop_last`` loader
+  and the pinned prefetch, the device augment (drawn per step from
+  ``(seed + 123, step)``), the train-mode forward and backward in the
+  compute dtype with f32 parameters, momentum SGD with weight decay and the
+  epoch step schedule (``--freeze_backbone``: the head only); after each
+  epoch the val split through the eval step (on a GPU every dense layer in
+  a dense-layer CUDA kernel), then the epoch file (the JAX ``TrainState``
+  layout, written atomically by a background writer) and its
+  ``scores.txt`` row. A rerun resumes the newest readable epoch (an
+  unreadable one is renamed ``.corrupt``), from either package. Training
+  ends with the best epoch reloaded and the test split scored;
 - ``--save_feats``: dump the backbone features of every sample of the
   train, val and test splits (the train split with its 255-frame context
   extension, no balancing and the test geometry) as f32 ``(F,)`` ``.npy``
@@ -18,12 +30,13 @@ a GPU raises). Two invocations run, neither of which trains:
   ``--backbone_from_id``: its newest epoch over frames), its backbone
   features pooled over ``--window`` and its own head applied.
 
-On a GPU every DenseNet dense layer runs in a dense-layer CUDA kernel.
-Training, and every option that only training or an unported model family
-uses, raises ``NotImplementedError`` naming its ``ROADMAP.md`` slice.
+On a GPU every DenseNet dense layer of an evaluation runs in a dense-layer
+CUDA kernel; the train step runs plain torch ops, as the JAX package trains
+through its flax module. Every option that only an unported model family
+uses raises ``NotImplementedError`` naming its ``ROADMAP.md`` slice.
 
-Run: ``python -m tennis_torch.train --model_id 0006 --backbone DenseNet121
---save_feats`` (``--device cpu`` off the GPU).
+Run: ``python -m tennis_torch.train --model_id 0006 --backbone DenseNet121``
+(add ``--save_feats`` for the dump; ``--device cpu`` off the GPU).
 """
 from __future__ import annotations
 
@@ -148,6 +161,19 @@ def refuse_unported(args: argparse.Namespace):
                                   "slice 4)")
 
 
+def refuse_untrainable(args: argparse.Namespace):
+    """Raise ``NotImplementedError`` for a training run the port does not
+    have: only framewise DenseNet classifiers train."""
+    if not args.backbone.lower().replace("-", "").startswith("densenet"):
+        raise NotImplementedError(
+            f"training is not ported for backbone {args.backbone!r}: only "
+            f"DenseNet121/161/169/201 (ROADMAP.md slice 7)")
+    if args.window > 1 and not args.feats_model:
+        raise NotImplementedError("training over clips (--window > 1) needs "
+                                  "the temporal models, not ported yet "
+                                  "(ROADMAP.md slice 7)")
+
+
 def make_datasets(args):
     """(train, val, test) sets; the train split is balanced only without
     ``--save_feats``."""
@@ -187,18 +213,20 @@ def make_eval_dataset(args, split: str, every_n: int | None = None):
 
 def _geometry_transform(args, train: bool):
     """Host-side geometry of raw frames; features pass through. The train
-    split takes the test geometry under ``--save_feats``, ``--window > 1``
-    and ``--flow``; its random train geometry comes with training."""
+    split takes the random ``RandomResizedCrop`` (per-thread generators from
+    ``--seed + 1``) unless ``--save_feats``, ``--window > 1`` or ``--flow``
+    asks for the test geometry."""
     from tennis_torch.data import transforms as T
 
-    if train and args.window == 1 and not args.flow and not args.save_feats:
-        raise NotImplementedError("the train-time augmentation is not ported "
-                                  "yet (ROADMAP.md slice 5)")
+    rng = T.ThreadLocalRng(args.seed + (1 if train else 2))
+    random_crop = (train and args.window == 1 and not args.flow
+                   and not args.save_feats)
 
     def apply(sample):
         img, label, idx = sample
         if img.ndim == 2 or (img.ndim == 3 and img.shape[-1] in (3, 6)):
-            img = T.test_geometry(img, args.data_shape)
+            img = T.train_geometry(img, args.data_shape, rng.get()) \
+                if random_crop else T.test_geometry(img, args.data_shape)
         elif img.ndim == 4:  # (T, H, W, C) window clip
             img = np.stack([T.test_geometry(f, args.data_shape) for f in img])
         return img, label, idx
@@ -208,12 +236,17 @@ def _geometry_transform(args, train: bool):
 
 def build_model(args, num_classes: int, feats: bool = False):
     """``FrameModel(backbone, num_classes)`` drawn from ``--seed`` (CPU,
-    f32 parameters). Feature input needs a temporal model."""
+    f32 parameters), with ``--remat``. Feature input needs a temporal
+    model."""
     from tennis_torch.inference import build_frame_model
 
     if feats:
         raise ValueError("--feats_model requires --temp_pool (gru/lstm/max/mean)")
+    remat = None if args.remat == "none" else args.remat
+    if remat and not args.backbone.lower().startswith("densenet"):
+        raise ValueError("--remat supports DenseNet backbones only")
     return build_frame_model(args.backbone, num_classes, args.data_shape,
+                             remat=remat,
                              generator=torch.Generator().manual_seed(args.seed))
 
 
@@ -389,13 +422,155 @@ def _pooled_final_test(args, test_set, loader, device):
     return metrics
 
 
+def _profile_train_steps(step, n: int, out_dir: str, device):
+    """``n`` calls of ``step`` under torch.profiler; the trace (Chrome
+    JSON) goes to ``out_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        for _ in range(n):
+            loss, _ = step()
+        float(loss)  # the steps' device work ends inside the trace
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "train_steps.json"))
+
+
+def fit(args, model, loaders: dict, exp_dir: str, device):
+    """Train ``model`` (a ``FrameModel``) over ``loaders["train"]`` from the
+    newest readable epoch of ``exp_dir`` to ``--epochs``, evaluate
+    ``loaders["val"]`` after every epoch and ``loaders["test"]`` with the
+    best epoch; returns ``(train state, test metric set)``.
+
+    The loaders yield ``(uint8 images, labels, indices)``; the train
+    loader's dataset names the classes (``.classes``) and the loader takes
+    ``set_epoch``. Each epoch: the train batches through the pinned
+    prefetch and the train step (the loss and a train PRF1 sampled at
+    ``--log_interval``; ``--max_batches`` ends the epoch early;
+    ``--profile_steps`` traces that many steps at the second batch of the
+    first epoch into ``<exp_dir>/tb/profile``), then the val split through
+    an eval step made anew (its BN operands folded from this epoch's
+    weights), then the epoch file through the background writer, and its
+    ``scores.txt`` row only after it."""
+    from tennis_torch.bridge import state_from_flax, state_to_flax
+    from tennis_torch.data.loader import eval_iter, prefetch_to_device
+    from tennis_torch.data.transforms import device_augment
+    from tennis_torch.inference import make_eval_step
+    from tennis_torch.parallel.train_step import create_train_state, \
+        make_train_step, sgd_with_schedule
+    from tennis_torch.utils import checkpoint as ckpt
+    from tennis_torch.utils.experiments import summary_writer
+
+    classes = loaders["train"].dataset.classes
+    model.to(device)
+    steps_per_epoch = max(1, len(loaders["train"]))
+    tx, _ = sgd_with_schedule(args.lr, args.momentum, args.wd,
+                              [int(s) for s in args.lr_steps], args.lr_factor,
+                              steps_per_epoch)
+    state = create_train_state(model, tx, args.freeze_backbone)
+    log.info("params: %.2fM", ckpt.param_count(model) / 1e6)
+    start_epoch = ckpt.resume_state(exp_dir,
+                                    lambda tree: state_from_flax(state, tree))
+    if start_epoch > 0:
+        log.info("resumed from epoch %d", start_epoch - 1)
+
+    def augment(images, generator):
+        return device_augment(images, generator, model.dtype)
+
+    train_step = make_train_step(state, augment, rng_seed=args.seed + 123)
+
+    def run_eval(split):
+        step = make_eval_step(model, device)  # folds this epoch's weights
+        metrics = _metric_set(classes)
+        for logits, labels, _ in eval_iter(loaders[split], step, device):
+            for m in metrics.values():
+                m.update(labels, logits)
+        model.train()
+        return metrics
+
+    tb = summary_writer(exp_dir)
+    profile_left = args.profile_steps
+    try:
+        with ckpt.AsyncCheckpointer() as writer:
+            for epoch in range(start_epoch, args.epochs):
+                loaders["train"].set_epoch(epoch)
+                tic = time.time()
+                n_samples, n_batches = 0, 0
+                train_metrics = _metric_set(classes)
+                for images, labels, _ in prefetch_to_device(
+                        iter(loaders["train"]), device):
+                    if profile_left > 0 and n_batches == 1:
+                        _profile_train_steps(
+                            lambda: train_step(images, labels), profile_left,
+                            os.path.join(exp_dir, "tb", "profile"), device)
+                        profile_left = 0
+                        log.info("profiler trace written to %s/tb/profile",
+                                 exp_dir)
+                    loss, logits = train_step(images, labels)
+                    n_batches += 1
+                    n_samples += len(labels)
+                    if n_batches % args.log_interval == 0 or n_batches == 1:
+                        loss_v = float(loss)
+                        train_metrics["prf1"].update(
+                            np.asarray(labels), logits.float().cpu().numpy())
+                        rate = n_samples / max(time.time() - tic, 1e-6)
+                        log.info("[Epoch %d][Batch %d] loss=%.4f %.1f "
+                                 "samples/sec", epoch, n_batches, loss_v, rate)
+                        if tb:
+                            tb.add_scalar("train/loss", loss_v, state.step)
+                            tb.add_scalar("train/samples_per_sec", rate,
+                                          state.step)
+                    if 0 < args.max_batches <= n_batches:
+                        break
+
+                train_f1 = train_metrics["prf1"].get_dict()["AVG_NB_f1"]
+                if tb:
+                    tb.add_scalar("train/AVG_NB_f1", train_f1, epoch)
+                log.info("[Epoch %d] train AVG_NB_f1=%.4f (sampled at log "
+                         "intervals)", epoch, train_f1)
+
+                val_metrics = run_eval("val")
+                score = val_metrics["prf1"].get_dict()["AVG_NB_f1"]
+                accs = {name: round(m.get()[1], 4)
+                        for name, m in val_metrics.items() if name != "prf1"}
+                log.info("[Epoch %d] val AVG_NB_f1=%.4f %s (%.1fs)", epoch,
+                         score, accs, time.time() - tic)
+                if tb:
+                    tb.add_scalar("val/AVG_NB_f1", score, epoch)
+                writer.save(ckpt.epoch_path(exp_dir, epoch),
+                            state_to_flax(state))
+                # the scores.txt row becomes durable only after its epoch
+                # file: a crash between hides an epoch, never dangles a row
+                writer.submit(
+                    lambda e=epoch, s=score: ckpt.append_score(exp_dir, e, s))
+    finally:
+        if tb:
+            tb.close()
+
+    best = ckpt.best_epoch(exp_dir)
+    if best is not None:
+        state_from_flax(state, ckpt.load_raw(ckpt.epoch_path(exp_dir, best[0])))
+        log.info("loaded best epoch %d (AVG_NB_f1=%.4f)", best[0], best[1])
+    test_metrics = run_eval("test")
+    for name, m in test_metrics.items():
+        if name != "prf1":
+            log.info("test %s=%.4f", *m.get())
+    for name, value in test_metrics["prf1"].get():
+        log.info("test %s=%.4f", name, value)
+    log.info("confusion:\n%s", test_metrics["prf1"].confusion_str())
+    return state, test_metrics
+
+
 def _num_workers(args, default: int) -> int:
     return args.num_workers if args.num_workers > 0 else default
 
 
 def train_and_evaluate(args: argparse.Namespace):
-    """Run ``--save_feats`` (returns the per-split dump report) or the
-    ``--temp_pool max|mean`` final test (returns its metric set)."""
+    """Train (returns the train state), run ``--save_feats`` (returns the
+    per-split dump report) or the ``--temp_pool max|mean`` final test
+    (returns its metric set)."""
     from tennis_torch.data.loader import DataLoader
     from tennis_torch.inference import make_extract_features, resolve_device
     from tennis_torch.utils import checkpoint as ckpt
@@ -403,10 +578,9 @@ def train_and_evaluate(args: argparse.Namespace):
 
     refuse_unported(args)
     pooled = args.temp_pool in ("max", "mean") and not args.save_feats
-    if not (args.save_feats or pooled):
-        raise NotImplementedError("training is not ported yet (ROADMAP.md "
-                                  "slice 5): pass --save_feats or --temp_pool "
-                                  "max|mean")
+    training = not (args.save_feats or pooled)
+    if training:
+        refuse_untrainable(args)
     if args.save_feats and args.temp_pool in ("max", "mean"):
         raise ValueError("--save_feats needs a backbone-bearing model "
                          "(FrameModel); it cannot be combined with "
@@ -417,9 +591,11 @@ def train_and_evaluate(args: argparse.Namespace):
     feats = bool(args.feats_model)
     workers = _num_workers(args, os.cpu_count() or 8)
 
-    def loader(ds, train):
-        return DataLoader(ds, batch_size=args.batch_size, shuffle=False,
-                          seed=args.seed, num_workers=workers, drop_last=False,
+    def loader(ds, train, sgd=False):
+        """Every sample in order, the ragged last batch kept; or, for SGD,
+        shuffled with the last partial batch dropped."""
+        return DataLoader(ds, batch_size=args.batch_size, shuffle=sgd,
+                          seed=args.seed, num_workers=workers, drop_last=sgd,
                           transform=None if feats else
                           _geometry_transform(args, train))
 
@@ -435,6 +611,11 @@ def train_and_evaluate(args: argparse.Namespace):
     model = build_model(args, datasets[0].num_class, feats)
     if args.backbone_from_id:
         _load_backbone_from(model, args.backbone_from_id)
+    if training:
+        loaders = {ds._split: loader(ds, ds._split == "train",
+                                     sgd=ds._split == "train")
+                   for ds in datasets}
+        return fit(args, model, loaders, exp_dir, device)[0]
     found = ckpt.latest_readable(exp_dir)
     if found is not None:
         epoch, tree = found

@@ -43,3 +43,13 @@ def setup_logging(exp_dir: str, flags_dict: dict | None = None):
         logging.info("flags:\n%s", "\n".join(
             f"--{k}={v}" for k, v in sorted(flags_dict.items())))
     return logger
+
+
+def summary_writer(exp_dir: str):
+    """A tensorboardX writer under ``<exp_dir>/tb``, or None without
+    tensorboardX."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        return None
+    return SummaryWriter(log_dir=os.path.join(exp_dir, "tb"))

@@ -517,3 +517,125 @@ def test_prefetch_pinned_batches_stay_intact(dev):
     want = [8 * 256 * 256 * 3 * i for i in range(20)]
     assert [int(s) for s in sums] == want
     assert stats["batches"] == 20
+
+
+# ------------------------------------------------------------------ training
+
+
+def test_train_step_on_the_card_matches_its_cpu_run(dev):
+    """Three f32 train steps of a small DenseNet at 64^2, batch 4, from the
+    same weights and batches on the card and on the CPU (TF32 off): the
+    losses within 1e-4; the parameters and the BN statistics within 1e-3 in
+    relative L2, the momentum (the sum of raw gradients) within 5e-2: cuDNN
+    picks its f32 convolution algorithms by the memory free, and after the
+    rest of this file it took ones whose gradients differ by ~1% (momentum
+    1.2e-2, parameters 2.4e-4 seen; 7e-6 and 3e-7 when run alone). The BN
+    scales and biases are drawn away from (1, 0), where the gradient of a
+    BN that the next BN normalizes is a cancellation. The card's step
+    launches no dense-layer kernel."""
+    import numpy as np
+
+    from tennis_torch.bridge import state_to_flax
+    from tennis_torch.models import FrameModel
+    from tennis_torch.parallel import train_step as ts
+
+    spec = DenseNetSpec((2, 2, 2, 2))
+    runs = {}
+    for device in ("cpu", dev):
+        model = FrameModel(DenseNet(spec, dtype=torch.float32,
+                                    generator=torch.Generator().manual_seed(0)),
+                           5, dtype=torch.float32,
+                           feature_dim=spec.final_channels,
+                           generator=torch.Generator().manual_seed(1))
+        g = torch.Generator().manual_seed(2)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if ".bn" in name and name.endswith("weight"):
+                    p.uniform_(0.5, 1.5, generator=g)
+                elif ".bn" in name:
+                    p.normal_(0.0, 0.2, generator=g)
+        tx, _ = ts.sgd_with_schedule(0.05, 0.9, 1e-4, (1, 2), 0.75, 2)
+        state = ts.create_train_state(model.to(device), tx)
+        step = ts.make_train_step(state)
+        rng = np.random.default_rng(2)
+        launches = db.dense_layer.launches
+        losses = []
+        for _ in range(3):
+            x = torch.from_numpy(rng.standard_normal((4, 64, 64, 3)).astype(
+                np.float32)).to(device)
+            losses.append(step(x, rng.integers(0, 5, 4))[0].item())
+        assert db.dense_layer.launches == launches
+        runs[str(device)] = (losses, state_to_flax(state))
+    (l_cpu, t_cpu), (l_dev, t_dev) = runs["cpu"], runs[str(dev)]
+    np.testing.assert_allclose(l_dev, l_cpu, rtol=0, atol=1e-4)
+
+    def leaves(tree):
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                yield from leaves(tree[k])
+            else:
+                yield np.ravel(tree[k])
+
+    for part in ("params", "batch_stats", "opt_state"):
+        got = np.concatenate(list(leaves(t_dev[part])))
+        want = np.concatenate(list(leaves(t_cpu[part])))
+        rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+        assert rel <= (5e-2 if part == "opt_state" else 1e-3), (part, rel)
+
+
+def test_apply_augment_on_the_card_matches_its_cpu_run(dev):
+    """The same draws on a card batch and a CPU batch: f32 within 4e-6 (the
+    card sums the luma mean in another order; 1.2e-6 seen), bf16 within one
+    bf16 step of the largest value."""
+    import numpy as np
+
+    from tennis_torch.data import transforms as T
+
+    images = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (8, 64, 48, 3), dtype=np.uint8))
+    draws = T.augment_draws(8, torch.Generator().manual_seed(4))
+    on_dev = T.AugmentDraws(*(d.to(dev) for d in draws))
+    for dtype, tol in ((torch.float32, 4e-6), (torch.bfloat16, 2 ** -6)):
+        got = T.apply_augment(images.to(dev), on_dev, dtype).float().cpu()
+        want = T.apply_augment(images, draws, dtype).float()
+        assert (got - want).abs().max().item() <= tol
+    g = torch.Generator(device=dev).manual_seed(5)
+    d = T.augment_draws(16, g)
+    assert all(t.device.type == "cuda" for t in d)
+
+
+def test_checkpoint_codec_round_trip_on_the_card(dev, tmp_path):
+    """A train state on the card written through the port's codec and read
+    back: the same bytes again, every leaf as it was on the card."""
+    import numpy as np
+
+    from tennis_torch.bridge import state_from_flax, state_to_flax
+    from tennis_torch.models import FrameModel
+    from tennis_torch.parallel import train_step as ts
+    from tennis_torch.utils import checkpoint as ckpt
+    from tennis_torch.utils import msgpack_codec
+
+    spec = DenseNetSpec((1, 1))
+
+    def state():
+        model = FrameModel(DenseNet(spec, generator=torch.Generator()
+                                    .manual_seed(0)), 5,
+                           feature_dim=spec.final_channels,
+                           generator=torch.Generator().manual_seed(1))
+        tx, _ = ts.sgd_with_schedule(0.01)
+        return ts.create_train_state(model.to(dev), tx)
+
+    first = state()
+    ts.make_train_step(first)(torch.rand(2, 32, 32, 3, device=dev), [0, 1])
+    path = str(tmp_path / "0000.params")
+    ckpt.save_state(path, state_to_flax(first))
+    second = state()
+    state_from_flax(second, ckpt.load_raw(path))
+    assert msgpack_codec.serialize(state_to_flax(second)) == \
+        open(path, "rb").read()
+    for (n, a), (_, b) in zip(first.model.state_dict().items(),
+                              second.model.state_dict().items()):
+        assert torch.equal(a, b), n
+    for n, t in first.opt_state.trace.items():
+        assert torch.equal(t, second.opt_state.trace[n]), n
+    assert np.asarray(ckpt.load_raw(path)["step"]) == 1

@@ -1,6 +1,7 @@
-"""The port stands alone: it imports neither JAX, flax nor the JAX package,
-imports its optional packages only where they are used, and its entry points
-refuse to fall back to the CPU when a GPU was asked for."""
+"""The port stands alone: it imports neither JAX, flax, the JAX package nor
+msgpack (it reads and writes checkpoints with its own codec), imports its
+optional packages only where they are used, and its entry points refuse to
+fall back to the CPU when a GPU was asked for."""
 import os
 import re
 import subprocess
@@ -23,8 +24,8 @@ def _one_torch_thread():
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "tennis_torch")
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(jax|flax|tennis_tpu)\b"
-    r"|(?:__import__|import_module)\(\s*['\"](jax|flax|tennis_tpu)\b",
+    r"^\s*(?:import|from)\s+(jax|flax|tennis_tpu|msgpack)\b"
+    r"|(?:__import__|import_module)\(\s*['\"](jax|flax|tennis_tpu|msgpack)\b",
     re.MULTILINE)
 
 
@@ -67,6 +68,30 @@ def test_importing_the_port_loads_no_jax_or_optional_packages():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", out.stdout
+
+
+def test_checkpoints_load_without_msgpack(tmp_path):
+    """A file the JAX package wrote loads, and a port-written one reads back,
+    in an interpreter where ``import msgpack`` fails."""
+    import numpy as np
+    from flax import serialization
+
+    tree = {"params": {"w": np.arange(6, dtype=np.float32).reshape(2, 3)},
+            "step": np.asarray(4, np.int32)}
+    path = tmp_path / "0000.params"
+    path.write_bytes(serialization.msgpack_serialize(tree, in_place=True))
+    code = ("import sys\n"
+            "sys.modules['msgpack'] = None  # import msgpack now fails\n"
+            "from tennis_torch.utils import checkpoint as ckpt\n"
+            f"tree = ckpt.load_raw({str(path)!r})\n"
+            f"ckpt.save_state({str(path) + '.copy'!r}, tree)\n"
+            f"again = ckpt.load_raw({str(path) + '.copy'!r})\n"
+            "print(again['params']['w'].sum(), int(again['step']))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["15.0", "4"]
+    assert (tmp_path / "0000.params.copy").read_bytes() == path.read_bytes()
 
 
 def test_cuda_without_gpu_raises(tmp_path, monkeypatch):
