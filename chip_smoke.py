@@ -74,7 +74,9 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    cluster size that takes the shape, and ``"barrier"`` where it fits), at
    the 0102 serving shape (T 128, batch 4, H 256), the measured ``/caption``
    lengths 21/30/104/69 (every row ends before T), H 512, the evaluate batch
-   (32), the default width (H 128) and T 1; device times of each, which one
+   (32), the default width (H 128), T 1, and a per-epoch decode batch of the
+   captioning trainer (batch 32, T 512, lengths 64-512); device times of
+   each, which one
    the route takes, times of the plain version, the port's whole layer
    (input GEMM + kernel) and cuDNN's ``nn.GRU`` over the same layer, the
    bound, and the serial floors: T cluster-barrier round trips for the
@@ -89,6 +91,28 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    plain-version encoder, and the kernel path's top beams rescored
    teacher-forced through the plain-encoded decoder; latency split into
    encode and decode loop, device busy and idle share;
+6b. captioner training (``[caption_train]``): the same captioner with
+   dropout 0.2, Adam 1e-3 and clip 5 over an in-memory train split of 512
+   points (64-512 frames of seeded 4096-d features, captions of 8-50 ids),
+   through ``make_seq2seq_train_step`` at ``--batch_size 128``: 3 warm-up
+   and 20 timed steps over the bucketed batches (step ms, target tokens/s,
+   source frames/s, device busy and idle share and launches over 2 profiled
+   steps, the largest kernels, peak memory). Gates: every loss finite; 30
+   steps on one batch lower the loss; the first step's loss (1e-4 relative)
+   and gradients (1e-3 global relative L2) at dropout 0 against the CPU's;
+   the differentiable recurrence against the GRU kernel within 1e-4; no
+   GRU kernel launch in a train step. ``[caption_driver]``:
+   ``train_gnmt.train`` for 2 epochs over that split and val and test splits
+   of 96 points at ``--test_batch_size 32``, a resumed run to 3 epochs and
+   ``evaluate_gnmt.evaluate --force --metrics_out``, with EOS biased far
+   down so that every decode runs the max length of 70 steps: 3 GRU kernel
+   launches a decode batch by the routed variant, the first evaluation's
+   encoder
+   outputs within 1e-4 of the plain version, the epoch files read back bit
+   for bit, the resumed run's rate the saved one with one decay after it,
+   the evaluator's ``best_test_out.txt`` byte for byte the trainer's, the 7
+   metrics in range; decode ms (a batch and a step), a decode's device
+   idle share, wall per epoch;
 7. DenseNet161 path: ``FrameModel(DenseNet161)`` at 224^2 with seeded
    random weights, its batch-2 warm-up forward through ``make_service``:
    78 dense layers through ``dense_layer_convs`` (widths no TPU kernel
@@ -153,6 +177,26 @@ VOCAB_WORDS = 250
 SRC_MAX_LEN = 128
 CAPTION_BATCH = 4
 N_CAPTIONS = 8
+# the captioner's training and per-epoch evaluation (train_gnmt defaults):
+# in-memory splits of 512 / 96 / 96 points, sources of 64-512 frames and
+# captions of 8-50 ids (BOS and EOS included), both uniform; features drawn
+# from (SEED, split, point). The card-vs-CPU gradient check at dropout 0
+# takes CAP_CPU_ROWS rows of the shortest train batch.
+CAP_POINTS = {"train": 512, "val": 96, "test": 96}
+CAP_SRC_LEN, CAP_IDS_LEN = (64, 512), (8, 50)
+CAP_TRAIN_ARGV = CAPTION_ARGV + [
+    "--batch_size=128", "--test_batch_size=32", "--dropout=0.2",
+    "--optimizer=adam", "--lr=0.001", "--clip=5", "--emb_file=",
+    "--device=cuda"]
+CAP_WARMUP, CAP_TIMED, CAP_PROFILED = 3, 20, 2
+CAP_CPU_ROWS = 16
+# the driver's EOS logit bias: far enough below every word's that its 12
+# Adam steps at 1e-3 cannot lift EOS into a beam, so every decode runs the
+# translator's max length (--tgt_max_len + 20), as /caption's decodes do on
+# random weights
+CAP_EOS_BIAS = -100.0
+CAP_LOSS_TOL = 1e-4  # |card - CPU| / |CPU| loss, first step, TF32 off
+CAP_GRAD_TOL = 1e-3  # global relative L2 of the gradients, same step
 # DenseNet161 (bottleneck 192, growth 48) at the 224^2 of its ImageNet config
 D161_SHAPE = 224
 D161_BATCH = 2
@@ -186,7 +230,9 @@ RESUME_TOL = 2e-2
 
 # (name, T, batch, H, valid lengths): the 0102 serving shape, the lengths of
 # the measured /caption batch (all end before T), --num_hidden 512, the
-# evaluate batch (--test_batch_size 32), the default --num_hidden, one step
+# evaluate batch (--test_batch_size 32), the default --num_hidden, one step,
+# and a per-epoch decode batch of train_gnmt (batch 32 over sources of
+# 64-512 frames)
 GRU_CASES = [
     ("serve_0102", 128, 4, 256, [128, 100, 37, 1]),
     ("caption_lengths", 128, 4, 256, [21, 30, 104, 69]),
@@ -194,6 +240,8 @@ GRU_CASES = [
     ("evaluate_b32", 128, 32, 256, [128 * (31 - i) // 31 for i in range(32)]),
     ("default_h128", 128, 4, 128, [128, 100, 37, 1]),
     ("t1", 1, 4, 256, [1, 0, 1, 1]),
+    ("decode_b32_t512", 512, 32, 256,
+     [64 + 448 * ((7 * i) % 32) // 31 for i in range(32)]),
 ]
 
 # (name, batch, side, c_in, c_final): first and last layer of each
@@ -244,13 +292,13 @@ def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
 
 def device_profile(fn):
     """Device time (ms) and launch count by kernel name over one call of
-    ``fn``, from torch.profiler's CUPTI trace."""
+    ``fn``, from torch.profiler's CUPTI trace of the device's activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     by_name: dict[str, list] = {}
@@ -1586,8 +1634,9 @@ def gru_phase(dev):
 
 @contextlib.contextmanager
 def plain_gru():
-    """Route RNNLayer's GRU recurrences through the plain version (the
-    yardstick of the caption-path gates; never on the served path)."""
+    """Route RNNLayer's GRU recurrences inside the decode context through
+    the kernel's plain version (the yardstick of the caption-path gates;
+    never on the served path)."""
     from tennis_torch.ops import gru, rnn
 
     rnn.gru_recurrence = gru.gru_recurrence_reference
@@ -1627,7 +1676,7 @@ def caption_phase(dev):
     from tennis_torch.bridge import load_flax, to_flax
     from tennis_torch.data.vocab import Vocab
     from tennis_torch.inference import make_captioner
-    from tennis_torch.ops import gru
+    from tennis_torch.ops import gru, rnn
     from tennis_torch.ops.beam_search import beam_search
     from tennis_torch.serve import Captioner, make_service
     from tennis_torch.train_gnmt import build_model, parse_args
@@ -1709,8 +1758,9 @@ def caption_phase(dev):
 
     # gates (comparison runs, after the counts were read)
     with torch.inference_mode():
-        mem_k, st_k = model.encode(src, src_vl)
-        with plain_gru():
+        with rnn.gru_decode():
+            mem_k, st_k = model.encode(src, src_vl)
+        with plain_gru(), rnn.gru_decode():
             enc_p = model.encode(src, src_vl)
         mem_p, st_p = enc_p
         enc_err = max([(mem_k - mem_p).abs().max().item()]
@@ -1744,7 +1794,9 @@ def caption_phase(dev):
         with torch.inference_mode():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            states = model.init_decoder_state(model.encode(src, src_vl), src_vl)
+            with rnn.gru_decode():
+                states = model.init_decoder_state(model.encode(src, src_vl),
+                                                  src_vl)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             beam_search(step, states, CAPTION_BATCH, info["beam_size"],
@@ -1782,6 +1834,413 @@ def caption_phase(dev):
         raise SystemExit("caption path disagrees with its plain-version "
                          "encoder")
     return by_variant
+
+
+class MemoryCaptionSplit:
+    """An in-memory captions-mode split with what ``train_gnmt`` and the
+    bucketed loader read of a TennisSet: ``vocab``, ``(features, caption
+    ids, frames, ids[, idx])`` items, ``get_captions``, ``get_data_lens``
+    and ``stats``. Point i has CAP_SRC_LEN frames of f32 features drawn from
+    (SEED, ``offset``, i) and a caption of CAP_IDS_LEN ids over the
+    vocabulary's words, both lengths uniform."""
+
+    def __init__(self, vocab, n, offset, inference):
+        from concurrent.futures import ThreadPoolExecutor
+
+        from tennis_torch.data.tennis_set import caption_ids
+
+        rng = np.random.default_rng([SEED, offset])
+        self.vocab, self.inference, self._split = vocab, inference, offset
+        frames = rng.integers(CAP_SRC_LEN[0], CAP_SRC_LEN[1] + 1, n)
+        words = rng.integers(CAP_IDS_LEN[0] - 2, CAP_IDS_LEN[1] - 1, n)
+        self.captions = [" ".join(vocab.idx_to_token[4 + int(w)] for w in
+                                  rng.integers(0, VOCAB_WORDS, k))
+                         for k in words]
+        self.ids = [caption_ids(vocab, c) for c in self.captions]
+
+        def draw(i):
+            return np.random.default_rng([SEED, offset, i]).standard_normal(
+                (int(frames[i]), FEAT_DIM), dtype=np.float32)
+
+        with ThreadPoolExecutor(8) as pool:
+            self.feats = list(pool.map(draw, range(n)))
+
+    def __len__(self):
+        return len(self.feats)
+
+    def __getitem__(self, i):
+        item = (self.feats[i], self.ids[i], len(self.feats[i]),
+                len(self.ids[i]))
+        return item + (i,) if self.inference else item
+
+    def get_captions(self, ids=False, split=False):
+        if ids:
+            return list(self.ids)
+        return [c.split() if split else c for c in self.captions]
+
+    def get_data_lens(self):
+        return [(len(f), len(c)) for f, c in zip(self.feats, self.ids)]
+
+    def stats(self):
+        return (f"in-memory split {self._split}: {len(self)} points, "
+                f"{sum(len(f) for f in self.feats)} frames")
+
+
+def caption_train_inputs():
+    """The vocabulary (4 specials + VOCAB_WORDS words), the three in-memory
+    splits and seeded random weights (flax naming) of the 0102 captioner."""
+    from collections import Counter
+
+    from tennis_torch.bridge import to_flax
+    from tennis_torch.data.vocab import Vocab
+    from tennis_torch.train_gnmt import build_model, parse_args
+
+    vocab = Vocab(Counter({f"w{i:03d}": VOCAB_WORDS - i
+                           for i in range(VOCAB_WORDS)}))
+    splits = {name: MemoryCaptionSplit(vocab, n, k, name != "train")
+              for k, (name, n) in enumerate(CAP_POINTS.items())}
+    model = build_model(parse_args(CAP_TRAIN_ARGV), len(vocab), FEAT_DIM)
+    tree = random_flax_tree(to_flax(model), np.random.default_rng(SEED + 10))
+    return vocab, splits, tree
+
+
+def caption_model(args, vocab, tree, dev, dropout=None):
+    """The captioner the flags describe with ``tree``'s weights, on
+    ``dev``; ``dropout`` overrides ``--dropout``."""
+    import argparse
+
+    from tennis_torch.bridge import load_flax
+    from tennis_torch.train_gnmt import build_model
+
+    if dropout is not None:
+        args = argparse.Namespace(**{**vars(args), "dropout": dropout})
+    model = build_model(args, len(vocab), FEAT_DIM)
+    return load_flax(model, tree).to(dev)
+
+
+def caption_train_phase(dev, vocab, splits, tree):
+    """The captioner's train step at --batch_size 128 through
+    make_seq2seq_train_step over the bucketed batches of the train split:
+    times, rates, the device's share, launches; gates: finite losses, a
+    repeated batch learnt, the first step's loss and gradients on the card
+    against the CPU at dropout 0, the differentiable recurrence against the
+    GRU kernel, and no GRU kernel launch in a train step."""
+    from tennis_torch.models.gnmt import masked_ce_loss
+    from tennis_torch.ops import gru, rnn
+    from tennis_torch.parallel.train_step import adam_with_clip, \
+        create_seq2seq_state, make_seq2seq_train_step
+    from tennis_torch.train_gnmt import make_loader, parse_args
+
+    args = parse_args(CAP_TRAIN_ARGV)
+
+    def fresh():
+        model = caption_model(args, vocab, tree, dev)
+        state = create_seq2seq_state(
+            model, adam_with_clip(args.clip, args.optimizer), args.lr)
+        return state, make_seq2seq_train_step(state, masked_ce_loss)
+
+    host = list(make_loader(args, splits["train"], "train"))
+    batches = [tuple(torch.from_numpy(x).to(dev) for x in b) for b in host]
+    shapes = [list(b[0].shape[:2]) + [b[1].shape[1]] for b in batches]
+    seeds = np.random.default_rng(args.seed + 1)
+    state, step = fresh()
+    launches0 = gru.gru_recurrence.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, tokens, frames = [], [], [], []
+    for i in range(CAP_WARMUP + CAP_TIMED):
+        b = batches[i % len(batches)]
+        t0 = time.perf_counter()
+        loss = step(*b, seeds.integers(2 ** 31))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        tokens.append(float(b[3].sum()))
+        frames.append(float(b[2].sum()))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    walls = []
+
+    def profiled():
+        t = time.perf_counter()
+        for i in range(CAP_PROFILED):
+            step(*batches[i], seeds.integers(2 ** 31))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+
+    by_name = device_profile(profiled)
+    gru_in_step = sum(v[1] for k, v in by_name.items()
+                      if any(n in k for n in GRU_KERNELS.values()))
+    step_launches = gru.gru_recurrence.launches - launches0
+    busy_ms = sum(v[0] for k, v in by_name.items()
+                  if not k.startswith(("Memcpy", "Memset")))
+    timed = times[CAP_WARMUP:]
+    med = statistics.median(timed)
+    finite = bool(np.isfinite(losses).all())
+    log("caption_train", batch=args.batch_size, batches_per_epoch=len(batches),
+        batch_shapes_B_T_L=shapes, steps=len(losses), timed_steps=len(timed),
+        step_ms=med, step_ms_min=min(timed), step_ms_max=max(timed),
+        step_ms_spread=(max(timed) - min(timed)) / med,
+        target_tokens_per_s=sum(tokens[CAP_WARMUP:]) / sum(timed) * 1e3,
+        source_frames_per_s=sum(frames[CAP_WARMUP:]) / sum(timed) * 1e3,
+        profiled_shapes=shapes[:CAP_PROFILED],
+        device_busy_ms_per_step=busy_ms / CAP_PROFILED,
+        idle_share=1 - busy_ms / walls[-1],
+        profiled_wall_ms_per_step=walls[-1] / CAP_PROFILED,
+        device_launches_per_step=sum(v[1] for v in by_name.values())
+        / CAP_PROFILED,
+        top=[[k[:60], v[0] / CAP_PROFILED, v[1] // CAP_PROFILED]
+             for k, v in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]],
+        peak_mem_gib=peak_gib, first_losses=losses[:4], last_loss=losses[-1],
+        losses_finite=finite, gru_kernel_launches_in_steps=step_launches,
+        gru_kernel_launches_profiled=gru_in_step)
+    del state, step, by_name
+
+    # 30 steps on one repeated batch (the shortest), new dropout masks each
+    short = min(range(len(batches)), key=lambda i: shapes[i][1])
+    state, step = fresh()
+    overfit = [step(*batches[short], seeds.integers(2 ** 31)).item()
+               for _ in range(OVERFIT_STEPS)]
+    del state, step
+    lowered = statistics.mean(overfit[-5:]) < statistics.mean(overfit[:5])
+
+    # the first step's loss and gradients, card against CPU, dropout 0
+    sub = [x[:CAP_CPU_ROWS] for x in batches[short]]
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        model = caption_model(args, vocab, tree, device, dropout=0.0).train()
+        src, tgt, svl, tvl = (x.to(device) for x in sub)
+        loss = masked_ce_loss(model(src, tgt[:, :-1], svl, tvl - 1),
+                              tgt[:, 1:], tvl - 1)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        runs.append((loss.item(), [g.cpu() for g in grads]))
+        del model
+    (loss_c, g_c), (loss_h, g_h) = runs
+    loss_rel = abs(loss_c - loss_h) / abs(loss_h)
+    grad_rel = (torch.cat([(a - b).flatten() for a, b in zip(g_c, g_h)]).norm()
+                / torch.cat([b.flatten() for b in g_h]).norm()).item()
+
+    # the differentiable recurrence against the kernel, the same operands
+    layer = caption_model(args, vocab, tree, dev).encoder.rnn0.fwd
+    x, _, x_vl, _ = batches[0]
+    with torch.inference_mode():
+        final_p, ys_p = layer(x, x_vl)
+        with rnn.gru_decode():
+            final_k, ys_k = layer(x, x_vl)
+        torch.cuda.synchronize()
+    rec_err = max((ys_p - ys_k).abs().max().item(),
+                  (final_p - final_k).abs().max().item())
+    del layer
+
+    ok = (finite and lowered and loss_rel <= CAP_LOSS_TOL
+          and grad_rel <= CAP_GRAD_TOL and rec_err <= GRU_TOL
+          and step_launches == 0 and gru_in_step == 0)
+    log("caption_train_check", losses_finite=finite, overfit_losses=overfit,
+        overfit_lowered=lowered, cpu_rows=CAP_CPU_ROWS,
+        cpu_shape=list(sub[0].shape[:2]), loss_card=loss_c, loss_cpu=loss_h,
+        loss_rel=loss_rel, loss_tol=CAP_LOSS_TOL, grad_rel_l2=grad_rel,
+        grad_tol=CAP_GRAD_TOL, recurrence_vs_kernel_max_abs=rec_err,
+        recurrence_shape=list(x.shape[:2]), gru_tol=GRU_TOL,
+        gru_kernel_launches_in_train_steps=step_launches + gru_in_step, ok=ok)
+    if not ok:
+        raise SystemExit("the captioner's train step failed its gates")
+
+
+def caption_driver_phase(dev, vocab, splits, tree):
+    """``train_gnmt.train`` for 2 epochs over the in-memory splits, then a
+    resumed run to 3 epochs, then ``evaluate_gnmt.evaluate --force
+    --metrics_out``, from ``tree`` with EOS biased by CAP_EOS_BIAS: every
+    decode batch runs the translator's max length and makes 3 GRU kernel
+    launches by the routed variant, the first evaluation's encoder outputs
+    agree with the plain version, the epoch files read back as saved, the
+    resumed run compounds the decay from the saved rate, the evaluator
+    rewrites the trainer's best_test_out.txt byte for byte. Returns the
+    decodes' GRU launches by variant."""
+    import logging
+    import tempfile
+    from unittest import mock
+
+    from tennis_torch import evaluate_gnmt, train_gnmt
+    from tennis_torch.bridge import load_flax
+    from tennis_torch.models.gnmt import NMTModel
+    from tennis_torch.ops import gru, rnn
+    from tennis_torch.translation import BeamSearchTranslator
+    from tennis_torch.utils import checkpoint as ckpt
+    from tennis_torch.utils import msgpack_codec
+
+    argv = CAP_TRAIN_ARGV + ["--model_id=cap", "--log_interval=1"]
+    build, translate = train_gnmt.build_model, \
+        BeamSearchTranslator.translate_tokens
+    save = ckpt.AsyncCheckpointer.save
+    decode_step = NMTModel.decode_step
+    flags = train_gnmt.parse_args(argv)
+    H, max_steps = flags.num_hidden, flags.tgt_max_len + 20
+    bias = tree["params"]["tgt_proj"]["bias"].copy()
+    bias[vocab[vocab.eos_token]] = CAP_EOS_BIAS
+    tree = {**tree, "params": {**tree["params"], "tgt_proj": {
+        **tree["params"]["tgt_proj"], "bias": bias}}}
+    decodes, saved, lines = [], [], []
+    first_eval = {"batches": None}
+    steps = [0]
+
+    def seeded_build(args, vocab_size, feat_dim, generator=None):
+        return load_flax(build(args, vocab_size, feat_dim, generator), tree)
+
+    def counting_decode_step(self, *a, **kw):
+        steps[0] += 1
+        return decode_step(self, *a, **kw)
+
+    def recording_translate(self, src, src_valid_length, vocab_):
+        B, T = src.shape[:2]
+        before = dict(gru.gru_recurrence.variant_launches)
+        steps0 = steps[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = translate(self, src, src_valid_length, vocab_)
+        ms = (time.perf_counter() - t0) * 1e3
+        rec = {"T": T, "B": B, "ms": ms, "steps": steps[0] - steps0,
+               "routed": gru.gru_route(T, B, H),
+               "launches": {v: n - before[v] for v, n in
+                            gru.gru_recurrence.variant_launches.items()}}
+        if first_eval["batches"] is None or len(decodes) < first_eval["batches"]:
+            # the first evaluation's batches (the first and the ragged ones)
+            vl = torch.as_tensor(src_valid_length, device=dev).to(torch.int32)
+            with torch.inference_mode():
+                with rnn.gru_decode():
+                    mem_k, st_k = self._model.encode(src, vl)
+                with plain_gru(), rnn.gru_decode():
+                    mem_p, st_p = self._model.encode(src, vl)
+                torch.cuda.synchronize()
+            rec["encoder_max_abs_err"] = max(
+                [(mem_k - mem_p).abs().max().item()]
+                + [(a - b).abs().max().item() for a, b in zip(st_k, st_p)])
+            rec["profile"] = (self, src, src_valid_length)
+        decodes.append(rec)
+        return out
+
+    def recording_save(self, path, tree_):
+        saved.append((path, tree_))
+        return save(self, path, tree_)
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    handler = Lines()
+    logging.getLogger().addHandler(handler)
+    cwd = os.getcwd()
+    try:
+        with tempfile.TemporaryDirectory() as work, \
+                mock.patch.object(train_gnmt, "build_model", seeded_build), \
+                mock.patch.object(BeamSearchTranslator, "translate_tokens",
+                                  recording_translate), \
+                mock.patch.object(NMTModel, "decode_step",
+                                  counting_decode_step), \
+                mock.patch.object(ckpt.AsyncCheckpointer, "save",
+                                  recording_save):
+            os.chdir(work)
+            datasets = (splits["train"], splits["val"], splits["test"])
+            first_eval["batches"] = len(train_gnmt.make_loader(
+                flags, splits["val"], "val"))
+            t0 = time.perf_counter()
+            train_gnmt.train(train_gnmt.parse_args(argv + ["--epochs=2"]),
+                             datasets)
+            wall_2 = time.perf_counter() - t0
+            exp = os.path.join("models", "captioning", "experiments", "cap")
+            identical = len(saved) >= 2 and all(
+                msgpack_codec.serialize(ckpt.load_raw(p))
+                == msgpack_codec.serialize(t) for p, t in saved)
+            saved_lr = float(ckpt.load_raw(ckpt.epoch_path(exp, 1))[
+                "opt_state"]["hyperparams"]["learning_rate"])
+            n_first = len(lines)
+            t0 = time.perf_counter()
+            train_gnmt.train(train_gnmt.parse_args(argv + ["--epochs=3"]),
+                             datasets)
+            wall_3 = time.perf_counter() - t0
+            resumed = lines[n_first:]
+            with open(os.path.join(exp, "best_test_out.txt"), "rb") as f:
+                best_out = f.read()
+            metrics_path = os.path.join(work, "metrics.json")
+            n_train_decodes = len(decodes)
+            t0 = time.perf_counter()
+            suite = evaluate_gnmt.evaluate(evaluate_gnmt.parse_args(
+                argv + ["--force", f"--metrics_out={metrics_path}"]),
+                datasets)
+            wall_eval = time.perf_counter() - t0
+            with open(os.path.join(exp, "best_test_out.txt"), "rb") as f:
+                rewritten = f.read() == best_out
+            with open(metrics_path) as f:
+                dumped = json.load(f)
+            files = sorted(os.listdir(exp))
+            self_, src, src_vl = decodes[0]["profile"]
+            wall = []
+
+            def one_decode():
+                t = time.perf_counter()
+                translate(self_, src, src_vl, vocab)
+                wall.append((time.perf_counter() - t) * 1e3)
+
+            by_name = device_profile(one_decode)
+            os.chdir(cwd)
+    finally:
+        os.chdir(cwd)
+        logging.getLogger().removeHandler(handler)
+
+    busy_ms = sum(v[0] for k, v in by_name.items()
+                  if not k.startswith(("Memcpy", "Memset")))
+    launches = dict.fromkeys(gru.VARIANTS, 0)
+    for r in decodes:
+        for v, n in r["launches"].items():
+            launches[v] += n
+    per_batch_ok = all(r["launches"] == {**dict.fromkeys(gru.VARIANTS, 0),
+                                         r["routed"]: 3} for r in decodes)
+    enc = [r["encoder_max_abs_err"] for r in decodes
+           if "encoder_max_abs_err" in r]
+    resume_line = f"resumed from epoch 1 (lr {saved_lr:g})"
+    after = [float(m.rsplit(" ", 1)[1]) for m in resumed
+             if m.startswith("lr decayed to")]
+    resume_ok = resume_line in resumed and len(after) == 1 and \
+        abs(after[0] / (saved_lr * 0.5) - 1) < 1e-5
+    want_keys = {"Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L",
+                 "CIDEr"}
+    metrics_ok = set(dumped) == want_keys and all(
+        0.0 <= v <= (10.0 if k == "CIDEr" else 1.0)
+        for k, v in dumped.items()) and dumped == suite
+    want_files = {"0000.params", "0001.params", "0002.params", "scores.txt",
+                  "valid_best.params", "best_test_out.txt", "val_gt.txt",
+                  "test_gt.txt", "epoch2_test_out.txt"}
+    full_length = all(r["steps"] == max_steps for r in decodes)
+    ok = (per_batch_ok and full_length and enc and max(enc) <= GRU_TOL
+          and identical
+          and resume_ok and rewritten and metrics_ok
+          and want_files <= set(files))
+    dec_ms = [r["ms"] for r in decodes]
+    step_ms = [r["ms"] / r["steps"] for r in decodes]
+    log("caption_driver", epochs=[2, 3], train_points=CAP_POINTS["train"],
+        eval_points=CAP_POINTS["val"],
+        test_batch=flags.test_batch_size, eos_bias=CAP_EOS_BIAS,
+        decodes=len(decodes), decodes_in_training=n_train_decodes,
+        decode_shapes_B_T=[[r["B"], r["T"]] for r in decodes],
+        launches=launches, launches_per_decode_ok=per_batch_ok,
+        routed=sorted({r["routed"] for r in decodes}),
+        encoder_max_abs_err=enc, gru_tol=GRU_TOL,
+        decode_steps=sorted({r["steps"] for r in decodes}),
+        max_steps=max_steps, full_length=full_length,
+        decode_ms_median=statistics.median(dec_ms), decode_ms_min=min(dec_ms),
+        decode_ms_max=max(dec_ms),
+        decode_ms_per_step_median=statistics.median(step_ms),
+        decode_profiled_B_T=[decodes[0]["B"], decodes[0]["T"]],
+        decode_device_busy_ms=busy_ms, decode_wall_ms=wall[-1],
+        decode_idle_share=1 - busy_ms / wall[-1],
+        decode_device_launches=sum(v[1] for v in by_name.values()),
+        wall_s_per_epoch=wall_2 / 2, resumed_epoch_wall_s=wall_3,
+        evaluate_wall_s=wall_eval, saved_read_back_identical=identical,
+        saved_files=len(saved), resumed_lr_line=resume_line,
+        decays_after_resume=after, resume_ok=resume_ok,
+        evaluate_rewrites_best_test_out=rewritten, metrics=dumped,
+        metrics_ok=metrics_ok, files=files, ok=ok)
+    if not ok:
+        raise SystemExit("the captioning driver failed its gates")
+    return launches
 
 
 def densenet161_phase(dev):
@@ -1930,7 +2389,8 @@ def gru_entry(name, variant, rows, launches, max_abs):
         else row["barrier_serial_floor_ms"],
         "work": f"one GRU recurrence of the 0102 encoder: T {T}, batch {B}, "
                 f"H {H}, lengths {lengths} ({key}); launches count the "
-                f"/caption batches served; library_ms (cuDNN nn.GRU) and "
+                f"/caption batches served and the per-epoch and evaluate_gnmt "
+                f"decodes of [caption_driver]; library_ms (cuDNN nn.GRU) and "
                 f"layer_ms (the port) cover the whole layer from {FEAT_DIM} "
                 f"features at full length",
     }
@@ -1966,6 +2426,11 @@ def main() -> int:
     del model
     gru_abs, gru_rows = gru_phase(torch.device("cuda"))
     gru_launches = caption_phase(torch.device("cuda"))
+    vocab, splits, tree = caption_train_inputs()
+    caption_train_phase(torch.device("cuda"), vocab, splits, tree)
+    counts = caption_driver_phase(torch.device("cuda"), vocab, splits, tree)
+    gru_launches = {v: gru_launches[v] + counts[v] for v in gru_launches}
+    del vocab, splits, tree
     densenet161_phase(torch.device("cuda"))
     # last: the train step's profile holds ~10,000 launches a step, and a
     # later profiler session once recorded no kernel six times in a row

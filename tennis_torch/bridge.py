@@ -18,10 +18,12 @@ a kernel in HWIO, a ``Linear`` weight a kernel in (in, out), an
 BatchNorm scale.
 
 ``state_to_flax`` and ``state_from_flax`` carry a whole train state
-(``parallel.train_step.TrainState``: parameters, BN statistics, the SGD
-momentum traces, the update count and the step) in the layout of the JAX
-package's ``TrainState`` files, so either package resumes the other's
-epochs.
+(``parallel.train_step.TrainState``) in the layout of the JAX package's
+files, so either package resumes the other's epochs: the classifier's
+``TrainState`` (parameters, BN statistics, the SGD momentum traces, the
+update count and the step) and the captioner's ``{"params",
+"batch_stats", "opt_state"}`` (Adam's moments and counts, and the injected
+learning rate).
 
 A leaf that matches no rule raises, and loading the result with
 ``load_state_dict`` (strict) raises on a key the module lacks or leaves
@@ -156,6 +158,72 @@ def _sorted(tree):
     return tree
 
 
+def _is_seq2seq(state) -> bool:
+    from tennis_torch.parallel.train_step import InjectState
+
+    return isinstance(state.opt_state, InjectState)
+
+
+def _seq2seq_to_flax(state) -> dict:
+    opt = state.opt_state
+    if opt.inner is None:  # optax.sgd(lr): identity, then the -lr scale
+        inner = {"0": {}, "1": {}}
+    else:
+        mu, _ = _flax_trees(state.model, lambda n, _: opt.inner.mu[n])
+        nu, _ = _flax_trees(state.model, lambda n, _: opt.inner.nu[n])
+        inner = {"0": {"count": np.asarray(opt.inner.count, np.int32),
+                       "mu": mu, "nu": nu}, "1": {}}
+    params, stats = _flax_trees(state.model)
+    opt_state = {"count": np.asarray(opt.count, np.int32),
+                 "hyperparams": {"learning_rate": np.asarray(
+                     opt.learning_rate, np.float32)},
+                 "hyperparams_states": {},
+                 "inner_state": {"0": {}, "1": inner}}
+    return _sorted({"params": params, "batch_stats": stats,
+                    "opt_state": opt_state})
+
+
+def _seq2seq_from_flax(state, tree: dict) -> None:
+    unknown = set(tree) ^ {"params", "batch_stats", "opt_state"}
+    if unknown:
+        raise KeyError(f"not a captioner train state: keys {sorted(unknown)} "
+                       f"differ")
+    opt_tree = tree["opt_state"]
+    if not {"count", "hyperparams", "inner_state"} <= set(opt_tree):
+        raise KeyError(f"not an inject_hyperparams optimizer state: keys "
+                       f"{sorted(opt_tree)}")
+    chain = opt_tree["inner_state"]
+    if set(chain) != {"0", "1"} or set(chain["1"]) != {"0", "1"}:
+        raise KeyError(f"not a clip + adam|sgd chain: keys {sorted(chain)}")
+    opt = state.opt_state
+    adam = chain["1"]["0"]
+    if (opt.inner is None) != (not adam):
+        raise ValueError("the optimizer state is of the other --optimizer")
+    moments = {}
+    if opt.inner is not None:
+        for key in ("mu", "nu"):
+            moments[key] = from_flax({"params": adam[key]})
+            want = getattr(opt.inner, key)
+            if set(moments[key]) != set(want):
+                raise KeyError(f"Adam's {key} differs from the model's: "
+                               f"{sorted(set(moments[key]) ^ set(want))}")
+    load_flax(state.model, {"params": tree["params"],
+                            "batch_stats": tree["batch_stats"]})
+    with torch.no_grad():
+        for key, loaded in moments.items():
+            for name, t in getattr(opt.inner, key).items():
+                if t.shape != loaded[name].shape:
+                    raise ValueError(f"Adam's {key} of {name}: shape "
+                                     f"{tuple(loaded[name].shape)}, want "
+                                     f"{tuple(t.shape)}")
+                t.copy_(loaded[name])
+    if opt.inner is not None:
+        opt.inner.count = int(adam["count"])
+    opt.count = int(opt_tree["count"])
+    opt.learning_rate = float(np.float32(
+        opt_tree["hyperparams"]["learning_rate"]))
+
+
 def state_to_flax(state) -> dict:
     """A ``parallel.train_step.TrainState`` as the JAX package's
     ``TrainState`` goes to disk (``flax.serialization.to_state_dict``):
@@ -167,7 +235,17 @@ def state_to_flax(state) -> dict:
     ``freeze_backbone`` that chain sits in ``multi_transform``'s
     ``{"inner_states": {"frozen": {"inner_state": {}}, "train":
     {"inner_state": chain}}}`` and the backbone's trace leaves are empty
-    (optax's masked nodes)."""
+    (optax's masked nodes).
+
+    A captioner's state (its ``opt_state`` an ``InjectState``) goes as the
+    JAX captioning driver saves it, a plain dict and so with every key
+    sorted: ``{"batch_stats", "opt_state", "params"}``, ``opt_state`` the
+    ``inject_hyperparams`` state
+    ``{"count", "hyperparams": {"learning_rate": f32}, "hyperparams_states":
+    {}, "inner_state": {"0": {} (the clip), "1": {"0": {"count", "mu",
+    "nu"} (Adam; {} for sgd), "1": {} (the -lr scale)}}}``, counts int32."""
+    if _is_seq2seq(state):
+        return _seq2seq_to_flax(state)
     params, stats = _flax_trees(state.model)
     trace, _ = _flax_trees(state.model,
                            lambda name, _: state.opt_state.trace.get(name))
@@ -185,9 +263,13 @@ def state_from_flax(state, tree: dict) -> None:
     """Load a JAX ``TrainState`` tree (a file the JAX package or
     :func:`state_to_flax` wrote, through ``load_raw``) into ``state`` in
     place: parameters and BN statistics, the momentum traces through the
-    same transposes as the parameters, the update count and the step. A tree
-    of another model, or of the other ``freeze_backbone`` setting, raises
+    same transposes as the parameters, the update count and the step; or a
+    captioner's tree (see :func:`state_to_flax`) into a captioner's state,
+    the learning rate included. A tree of another model, or of the other
+    ``freeze_backbone`` or ``--optimizer`` setting, raises
     ``KeyError``/``ValueError``/``RuntimeError``."""
+    if _is_seq2seq(state):
+        return _seq2seq_from_flax(state, tree)
     unknown = set(tree) ^ {"step", "params", "batch_stats", "opt_state"}
     if unknown:
         raise KeyError(f"not a train state: keys {sorted(unknown)} differ")

@@ -124,20 +124,20 @@ class _PinnedRing:
 
 
 def prefetch_to_device(iterator, device=None, buffer_size: int = 2,
-                       stats: dict | None = None):
+                       stats: dict | None = None, moved: int = 1):
     """Move batches to ``device`` ahead of compute, in two stages.
 
     Stage 1 (source thread) pulls host batches from ``iterator`` into a
-    queue; stage 2 (transfer thread) moves each batch's ``inputs`` (its
-    first element, or the batch itself when it is an array) to ``device``
-    into a second queue that the consumer reads; the rest of a tuple batch
-    stays on the host as it is. On a CUDA device the transfer copies into a
-    ring of pinned host buffers, then copies to the device without blocking
-    on a side stream; the consumer's stream waits on that copy's event, and
-    the device tensor is marked as used by the consumer's stream, so the
-    allocator does not hand its memory to a later copy while the consumer's
-    kernels may still read it. On the CPU (``device`` None or "cpu") the
-    inputs are yielded as host tensors.
+    queue; stage 2 (transfer thread) moves each batch's inputs (its first
+    ``moved`` elements, or the batch itself when it is an array) to
+    ``device`` into a second queue that the consumer reads; the rest of a
+    tuple batch stays on the host as it is. On a CUDA device the transfer
+    copies into a ring of pinned host buffers, then copies to the device
+    without blocking on a side stream; the consumer's stream waits on the
+    batch's last copy, and each device tensor is marked as used by the
+    consumer's stream, so the allocator does not hand its memory to a later
+    copy while the consumer's kernels may still read it. On the CPU
+    (``device`` None or "cpu") the inputs are yielded as host tensors.
 
     ``stats`` (optional dict) accumulates ``source_s`` (time blocked on the
     upstream iterator: decode), ``device_put_s`` (time staging and enqueuing
@@ -159,21 +159,24 @@ def prefetch_to_device(iterator, device=None, buffer_size: int = 2,
     err = []
     stop = threading.Event()  # the consumer abandoned the generator
     stream = torch.cuda.Stream(device) if cuda else None
-    # slots: one per batch that can be queued, being copied or being
-    # consumed, so a refill seldom waits
-    ring = _PinnedRing(buffer_size + 2) if cuda else None
+    # slots: one per input of a batch that can be queued, being copied or
+    # being consumed, so a refill seldom waits
+    ring = _PinnedRing((buffer_size + 2) * moved) if cuda else None
 
     def put(batch):
-        """(batch with its inputs moved, copy event or None)."""
-        rest = None
-        if isinstance(batch, (tuple, list)):
-            batch, rest = batch[0], tuple(batch[1:])
-        if cuda:
-            with torch.cuda.device(device):
-                out, event = ring.to_device(batch, device, stream)
-        else:
-            out, event = torch.from_numpy(np.asarray(batch)), None
-        return (out if rest is None else (out, *rest)), event
+        """(batch with its inputs moved, event of its last copy or None)."""
+        tuple_batch = isinstance(batch, (tuple, list))
+        inputs, rest = (batch[:moved], tuple(batch[moved:])) if tuple_batch \
+            else ((batch,), ())
+        out, event = [], None
+        for x in inputs:
+            if cuda:
+                with torch.cuda.device(device):
+                    x, event = ring.to_device(x, device, stream)
+            else:
+                x = torch.from_numpy(np.asarray(x))
+            out.append(x)
+        return ((*out, *rest) if tuple_batch else out[0]), event
 
     def _bounded_put(q, item) -> bool:
         # a consumer that left never drains the queue: a blocking put would
@@ -244,11 +247,26 @@ def prefetch_to_device(iterator, device=None, buffer_size: int = 2,
             if event is not None:
                 consumer = torch.cuda.current_stream(device)
                 consumer.wait_event(event)
-                inputs = batch[0] if isinstance(batch, tuple) else batch
-                inputs.record_stream(consumer)
+                for x in (batch[:moved] if isinstance(batch, tuple)
+                          else (batch,)):
+                    x.record_stream(consumer)
             yield batch
     finally:
         stop.set()  # GeneratorExit or an exception on the consumer side
+
+
+def padded_batch(arrays: Sequence[np.ndarray], pad_value=0, axis: int = 0):
+    """Stack variable-length arrays, padding ``axis`` to the batch's
+    longest (gluonnlp's ``batchify.Pad``). Returns (stacked, int32
+    lengths)."""
+    lengths = np.asarray([a.shape[axis] for a in arrays], dtype=np.int32)
+    max_len = int(lengths.max())
+    out = []
+    for a in arrays:
+        pad = [(0, 0)] * a.ndim
+        pad[axis] = (0, max_len - a.shape[axis])
+        out.append(np.pad(a, pad, constant_values=pad_value))
+    return np.stack(out), lengths
 
 
 def eval_iter(loader, step, device=None):

@@ -1,10 +1,11 @@
-"""TenniSet index: the classification side (``TennisSet``: samples,
-labels, events, seeded class balancing, windows, frame and feature loading,
-feature dump paths) and the caption index (``CaptionIndex``); counterpart of
-``tennis_tpu/data/tennis_set.py``. The JAX ``TennisSet(captions=True)``
-mode is ``CaptionIndex`` here; in-band frame extraction from the source
-videos (``extract_missing``) and the native DCT-scaled JPEG decode are not
-ported yet.
+"""TenniSet index (counterpart of ``tennis_tpu/data/tennis_set.py``):
+``TennisSet`` for frame classification and feature dumps (samples, labels,
+events, seeded class balancing, windows, frame and feature loading, feature
+dump paths) and, with ``captions=True``, for the captioner (the split's
+points, the caption vocabulary, caption ids, bucketing lengths); and the
+caption index ``CaptionIndex`` that the ``/caption`` service reads. In-band
+frame extraction from the source videos (``extract_missing``) and the
+native DCT-scaled JPEG decode are not ported yet.
 
 On-disk conventions, as in the JAX package:
 
@@ -85,6 +86,13 @@ def load_points(root: str, split: str = "train",
             raise KeyError(f"frame {frame} of {v} has no label")
         in_set[v].add(frame)
 
+    return read_points(root, in_set)
+
+
+def read_points(root: str, in_set: dict) -> "OrderedDict[str, list]":
+    """``{point_id: [video, start, end, x, caption]}`` in ``points.txt``
+    order, for the points whose start frame is in ``in_set[video]`` (a set
+    of the split's frames on disk); empty without the annotation files."""
     points = OrderedDict()
     points_path = os.path.join(root, "annotations", "points.txt")
     caps_path = os.path.join(root, "annotations", "captions.txt")
@@ -102,6 +110,16 @@ def load_points(root: str, split: str = "train",
             if p[1] in in_set and int(p[2]) in in_set[p[1]]:
                 points[p[0]] = p[1:] + [cap]
     return points
+
+
+def caption_ids(vocab: Vocab, caption: str, max_cap_len: int = -1):
+    """int32 token ids ``BOS w_1 ... w_n EOS`` of a caption, its words cut
+    to ``max_cap_len`` when that is >= 0."""
+    toks = caption.split()
+    if max_cap_len >= 0:
+        toks = toks[:max_cap_len]
+    return np.asarray([vocab[vocab.bos_token]] + vocab[toks]
+                      + [vocab[vocab.eos_token]], dtype=np.int32)
 
 
 class CaptionIndex:
@@ -122,15 +140,8 @@ class CaptionIndex:
                                      feats_model if feats_model else model_id)
         self.vocab = vocab if vocab is not None else captions_vocab(
             [p[4] for p in self.points.values()])
-        bos = self.vocab[self.vocab.bos_token]
-        eos = self.vocab[self.vocab.eos_token]
-        self.caption_ids = {}
-        for point_id, p in self.points.items():
-            toks = p[4].split()
-            if max_cap_len >= 0:
-                toks = toks[:max_cap_len]
-            self.caption_ids[point_id] = np.asarray(
-                [bos] + self.vocab[toks] + [eos], dtype=np.int32)
+        self.caption_ids = {point_id: caption_ids(self.vocab, p[4], max_cap_len)
+                            for point_id, p in self.points.items()}
 
     def __len__(self) -> int:
         return len(self.samples)
@@ -162,14 +173,20 @@ def _read_image_rgb(path: str, min_short: int | None = None) -> np.ndarray:
 
 class TennisSet:
     """Index over the TenniSet frames and labels for frame classification
-    and feature dumps (the JAX ``TennisSet`` with ``captions=False``).
+    and feature dumps, or over its captioned points with ``captions=True``.
 
     ``__getitem__`` returns ``(img, label, idx)``: img is (H, W, C) uint8,
     (window, H, W, C) uint8 for ``window > 1``, or the float32 features of
-    ``feats_model`` when given. Class balancing of 'OTH' is seeded
-    (``balance_seed``). ``save_feats`` extends each video's frames by 255 on
-    either side, labelled 'OTH', before the existence filter, so temporal
-    models get context features at event boundaries. Frames missing on disk
+    ``feats_model`` when given. In captions mode it returns ``(imgs,
+    cap_ids, n_imgs, n_cap)``, with ``idx`` appended when ``inference``:
+    every ``every``-th frame (or feature) of the point stacked, and the
+    int32 caption ids (``BOS ... EOS``, words cut to ``max_cap_len`` when
+    >= 0) in ``vocab``, by default the one built from this split's captions
+    (the train split's is the one checkpoints index into). Class balancing
+    of 'OTH' is seeded (``balance_seed``). ``save_feats`` extends each
+    video's frames by 255 on either side, labelled 'OTH', before the
+    existence filter, so temporal models get context features at event
+    boundaries. Frames missing on disk
     are dropped.
     """
 
@@ -178,8 +195,12 @@ class TennisSet:
                  model_id="0000", split_id="02", flow=False,
                  feats_model=None, save_feats=False, balance_seed: int = 0,
                  decode_short: int | None = None,
-                 frames_cache: int | None = None):
+                 frames_cache: int | None = None, captions: bool = False,
+                 max_cap_len: int = -1, vocab: Vocab | None = None,
+                 inference: bool = False):
         self._decode_short = decode_short
+        self._captions = captions
+        self._inference = inference
         # the pre-resized mirror, with per-file fallback; off for the
         # 6-channel path, whose 8-row crop needs the on-disk geometry
         self._frames_cache_dir = None
@@ -210,7 +231,16 @@ class TennisSet:
 
         self._samples, self._videos, self._events = self._load_data(split_id)
         self._video_lengths = self._get_video_lengths()
-        if balance:
+        if captions:
+            self._points = read_points(root, {
+                v: {s[1] for s in self._samples if s[0] == v}
+                for v in self._videos})
+            self._samples = list(self._points)
+            self.vocab = vocab if vocab is not None else captions_vocab(
+                [p[4] for p in self._points.values()])
+            for p in self._points.values():
+                p.append(caption_ids(self.vocab, p[4], max_cap_len))
+        elif balance:
             self._samples = self._balance_classes(balance_seed)
 
     # ------------------------------------------------------------ loading
@@ -366,6 +396,19 @@ class TennisSet:
                 for o in offsets]
 
     def __getitem__(self, idx):
+        if self._captions:
+            video, start, end, _, _, cap = self._points[self._samples[idx]]
+            imgs = []
+            for c, f in enumerate(range(int(start), int(end))):
+                if c % self._every == 0:
+                    img = self._load_frame(video, f)
+                    if self._transform is not None:
+                        img = self._transform(img)
+                    imgs.append(img)
+            imgs = np.stack(imgs)
+            if self._inference:
+                return imgs, cap, len(imgs), len(cap), idx
+            return imgs, cap, len(imgs), len(cap)
         sample = self._samples[idx]
         label = self.classes.index(sample[2])
         if self._window > 1:
@@ -382,6 +425,26 @@ class TennisSet:
                 img = self._transform(img)
         return img, label, idx
 
+    # ----------------------------------------------------------- captions
+
+    def get_captions(self, ids=False, split=False):
+        """Each point's caption: the string, its words (``split``), or its
+        ids (``ids``)."""
+        caps = []
+        for point_id in self._samples:
+            cap = self._points[point_id][5 if ids else 4]
+            caps.append(cap.split() if split and not ids else cap)
+        return caps
+
+    def get_data_lens(self):
+        """(frames, caption ids) of each point, the bucketing keys. The
+        frame count is ``(end - start + 1) / every`` rounded down, as the
+        JAX package counts it."""
+        if not self._captions:
+            raise ValueError("get_data_lens needs captions=True")
+        return [(int((int(p[2]) - int(p[1]) + 1) / self._every), len(p[5]))
+                for p in (self._points[i] for i in self._samples)]
+
     def save_feature_path(self, idx, chunk_size=CHUNK_SIZE):
         sample = self._samples[idx]
         return get_feature_path(self.feat_dir, sample[0], sample[1], chunk_size)
@@ -389,6 +452,15 @@ class TennisSet:
     # ---------------------------------------------------------- reporting
 
     def stats(self):
+        if self._captions:
+            frames = sum(int(self._points[s][2]) - int(self._points[s][1])
+                         for s in self._samples)
+            points = len(self._samples)
+            return (f"Split: {self._split}\n"
+                    + "{0: <8} {1: <8} {2: <5}\n".format(
+                        "# Points", "# Frames", "FperP")
+                    + "{0: <8} {1: <8} {2: <5}\n".format(
+                        points, frames, int(frames / max(points, 1))))
         frame_counts = self.class_counts()
         event_counts = [0] * len(self.classes)
         index = {c: i for i, c in enumerate(self.classes)}

@@ -1,5 +1,6 @@
 """Token vocabulary, index-compatible with gluonnlp's ``Vocab`` (a copy of
-``tennis_tpu/data/vocab.py``'s ``Vocab`` and ``captions_vocab``).
+``tennis_tpu/data/vocab.py``: ``Vocab``, ``load_embeddings`` and
+``captions_vocab``).
 
 Layout: ``0 '<unk>'``, ``1 '<pad>'``, ``2 '<bos>'``, ``3 '<eos>'``, then
 corpus tokens by descending frequency, ties alphabetical. Checkpoint token
@@ -63,6 +64,31 @@ class Vocab:
 
     def __repr__(self):
         return f"Vocab(size={len(self)}, unk='{self.UNK}')"
+
+
+def load_embeddings(path: str, vocab: Vocab, emb_dim: int | None = None):
+    """Load an ``embeddings-ex.txt``-style file (``token v0 v1 ...`` a line)
+    into a (len(vocab), D) f32 matrix; tokens absent from the file get zero
+    vectors. The captioner's fixed ``tgt_embed`` init."""
+    import numpy as np
+
+    table = {}
+    with open(path, "r", encoding="utf-8") as f:
+        for line in f:
+            parts = line.rstrip("\n").split()
+            if len(parts) < 2:
+                continue
+            token, vec = parts[0], np.asarray(parts[1:], dtype=np.float32)
+            table[token] = vec
+            if emb_dim is None:
+                emb_dim = len(vec)
+    if emb_dim is None:
+        raise ValueError(f"no embeddings parsed from {path}")
+    out = np.zeros((len(vocab), emb_dim), dtype=np.float32)
+    for token, vec in table.items():
+        if token in vocab:
+            out[vocab[token]] = vec
+    return out
 
 
 def captions_vocab(captions: Sequence[str]) -> Vocab:

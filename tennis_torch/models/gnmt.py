@@ -1,5 +1,5 @@
 """GNMT-style encoder/decoder and NMT captioning model (counterpart of
-``tennis_tpu/models/gnmt.py``), features path, inference.
+``tennis_tpu/models/gnmt.py``), features path, with ``masked_ce_loss``.
 
 Structure (gnmt_v2):
 - encoder: ``num_bi_layers`` bidirectional GRU/LSTM layers, then
@@ -13,15 +13,21 @@ Structure (gnmt_v2):
 
 Parameter names follow the flax tree: ``encoder.rnn{i}[.fwd|.bwd]``,
 ``decoder.step.rnn{i}.{i2h,h2h}``, ``decoder.step.attention.query_proj``,
-``tgt_embed`` and ``tgt_proj``. Dropout is the identity at inference and is
-not ported; neither are the pixels path (``src_embed``) and
-``masked_ce_loss``, which wait for training.
+``tgt_embed`` and ``tgt_proj``.
+
+Dropout sits where the JAX package puts it: after each encoder layer, before
+the residual, and after each decoder layer from 1 on, before the residual.
+It acts only in ``train()`` mode, drawing its masks from the
+``torch.Generator`` the forward is given (a train-mode forward with dropout
+and no generator raises); in ``eval()`` mode it is the identity. The pixels
+path (``src_embed``, a DenseNet) is not ported yet.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tennis_torch.ops.attention import LuongAttention
@@ -29,14 +35,32 @@ from tennis_torch.ops.masking import sequence_mask
 from tennis_torch.ops.rnn import BiRNN, RNNLayer, dense, make_cell
 
 
+def dropout(x, rate: float, training: bool,
+            generator: torch.Generator | None):
+    """flax ``nn.Dropout``: in training, keep each element with probability
+    1 - ``rate`` (a mask drawn from ``generator``) scaled by 1 / (1 -
+    ``rate``), else zero; the identity at rate 0 or outside training."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("a train-mode forward with dropout needs a "
+                         "torch.Generator for its masks")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 class GNMTEncoder(nn.Module):
     def __init__(self, cell_type: str = "gru", num_layers: int = 2,
                  num_bi_layers: int = 1, input_size: int = 4096,
                  hidden_size: int = 128, use_residual: bool = False,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dropout: float = 0.0):
         super().__init__()
         if num_bi_layers > num_layers:
             raise ValueError("num_bi_layers must not exceed num_layers")
+        self.dropout = dropout
         self.num_layers = num_layers
         self.num_bi_layers = num_bi_layers
         self.use_residual = use_residual
@@ -51,8 +75,9 @@ class GNMTEncoder(nn.Module):
                 size = hidden_size
             self.add_module(f"rnn{i}", layer)
 
-    def forward(self, inputs, valid_length=None):
-        """(B, T, C) -> (outputs (B, T, H) masked, list of final states)."""
+    def forward(self, inputs, valid_length=None, generator=None):
+        """(B, T, C) -> (outputs (B, T, H) masked, list of final states);
+        ``generator`` draws the train-mode dropout masks."""
         x = inputs.float()
         states = []
         for i in range(self.num_layers):
@@ -63,6 +88,7 @@ class GNMTEncoder(nn.Module):
             else:
                 final, out = layer(x, valid_length)
                 states.append(final)
+            out = dropout(out, self.dropout, self.training, generator)
             if self.use_residual and i > self.num_bi_layers:
                 out = out + x
             x = out
@@ -77,10 +103,12 @@ class GNMTDecoderStep(nn.Module):
     def __init__(self, cell_type: str = "gru", num_layers: int = 2,
                  embed_size: int = 100, hidden_size: int = 128,
                  use_residual: bool = False,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_layers = num_layers
         self.use_residual = use_residual
+        self.dropout = dropout
         self.rnn0 = make_cell(cell_type, embed_size + hidden_size, hidden_size,
                               generator)
         self.attention = LuongAttention(hidden_size, hidden_size,
@@ -89,7 +117,7 @@ class GNMTDecoderStep(nn.Module):
             self.add_module(f"rnn{i}", make_cell(
                 cell_type, 2 * hidden_size, hidden_size, generator))
 
-    def forward(self, carry, step_input, mem_value, mem_masks):
+    def forward(self, carry, step_input, mem_value, mem_masks, generator=None):
         """carry (rnn_states, attention_vec), step_input (B, E) ->
         ((new_states, attention_vec), (rnn_out, attention weights))."""
         rnn_states, attention_vec = carry
@@ -103,6 +131,7 @@ class GNMTDecoderStep(nn.Module):
             curr_input = rnn_out
             state_i, rnn_out = getattr(self, f"rnn{i}")(
                 rnn_states[i], torch.cat([curr_input, attention_vec], -1))
+            rnn_out = dropout(rnn_out, self.dropout, self.training, generator)
             if self.use_residual:
                 rnn_out = rnn_out + curr_input
             new_states.append(state_i)
@@ -116,10 +145,12 @@ class GNMTDecoder(nn.Module):
     def __init__(self, cell_type: str = "gru", num_layers: int = 2,
                  embed_size: int = 100, hidden_size: int = 128,
                  use_residual: bool = False,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dropout: float = 0.0):
         super().__init__()
         self.step = GNMTDecoderStep(cell_type, num_layers, embed_size,
-                                    hidden_size, use_residual, generator)
+                                    hidden_size, use_residual, generator,
+                                    dropout)
 
     @staticmethod
     def init_state(encoder_states, mem_value, mem_valid_length=None):
@@ -133,14 +164,14 @@ class GNMTDecoder(nn.Module):
                          < mem_valid_length.to(mem_value.device)[:, None])
         return tuple(encoder_states), attention_vec, mem_value, mem_masks
 
-    def forward(self, inputs, states, valid_length=None):
+    def forward(self, inputs, states, valid_length=None, generator=None):
         """(B, T, E) teacher-forced decode -> ((B, T, H) outputs, states)."""
         rnn_states, attention_vec, mem_value, mem_masks = states
         carry = (rnn_states, attention_vec)
         outputs = []
         for t in range(inputs.shape[1]):
             carry, (out, _) = self.step(carry, inputs[:, t], mem_value,
-                                        mem_masks)
+                                        mem_masks, generator)
             outputs.append(out)
         outputs = torch.stack(outputs, dim=1)
         if valid_length is not None:
@@ -165,8 +196,8 @@ class NMTModel(nn.Module):
                                           generator=generator)
         self.tgt_proj = dense(hidden_size, vocab_size, generator=generator)
 
-    def encode(self, src, valid_length=None):
-        return self.encoder(src.float(), valid_length)
+    def encode(self, src, valid_length=None, generator=None):
+        return self.encoder(src.float(), valid_length, generator)
 
     def init_decoder_state(self, encoder_outputs, src_valid_length=None):
         mem_value, enc_states = encoder_outputs
@@ -179,23 +210,50 @@ class NMTModel(nn.Module):
         return self.tgt_proj(out[:, 0]), new_states
 
     def forward(self, src, tgt_tokens, src_valid_length=None,
-                tgt_valid_length=None):
-        """Teacher-forced forward -> logits (B, T_tgt, V)."""
-        states = self.init_decoder_state(self.encode(src, src_valid_length),
-                                         src_valid_length)
+                tgt_valid_length=None, generator=None):
+        """Teacher-forced forward -> logits (B, T_tgt, V); ``generator``
+        draws the dropout masks of a train-mode forward."""
+        states = self.init_decoder_state(
+            self.encode(src, src_valid_length, generator), src_valid_length)
         outputs, _ = self.decoder(self.tgt_embed(tgt_tokens.long()), states,
-                                  tgt_valid_length)
+                                  tgt_valid_length, generator)
         return self.tgt_proj(outputs)
 
 
+def masked_ce_loss(logits, labels, valid_length, average: str = "padded",
+                   sample_weights=None):
+    """gluonnlp ``MaskedSoftmaxCELoss``: the per-step softmax cross-entropy
+    of f32 ``logits`` (B, T, V) against ``labels`` (B, T), zero at and past
+    ``valid_length`` (B,), averaged per sample over the **padded** length T
+    (``average="padded"``; ``"valid"`` divides by the true lengths), then
+    over the batch, or weighted by ``sample_weights`` (B,), where a zero
+    weight drops a row exactly."""
+    B, T, V = logits.shape
+    ce = F.cross_entropy(logits.float().reshape(B * T, V),
+                         labels.long().reshape(B * T),
+                         reduction="none").view(B, T)
+    vl = valid_length.to(logits.device)
+    mask = torch.arange(T, device=logits.device)[None, :] < \
+        vl.to(torch.int32)[:, None]
+    ce = torch.where(mask, ce, torch.zeros((), device=ce.device))
+    if average == "padded":
+        per_sample = ce.sum(1) / T
+    else:
+        per_sample = ce.sum(1) / torch.clamp(vl.float(), min=1.0)
+    if sample_weights is not None:
+        w = sample_weights.to(logits.device, torch.float32)
+        return (per_sample * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return per_sample.mean()
+
+
 def get_gnmt_encoder_decoder(cell_type="gru", num_layers=2, num_bi_layers=1,
-                             hidden_size=128, use_residual=False,
+                             hidden_size=128, dropout=0.0, use_residual=False,
                              input_size=4096, embed_size=100,
                              generator: torch.Generator | None = None):
     """Factory of the JAX package's ``get_gnmt_encoder_decoder``; torch
     needs the source feature size and the embedding size up front."""
     encoder = GNMTEncoder(cell_type, num_layers, num_bi_layers, input_size,
-                          hidden_size, use_residual, generator)
+                          hidden_size, use_residual, generator, dropout)
     decoder = GNMTDecoder(cell_type, num_layers, embed_size, hidden_size,
-                          use_residual, generator)
+                          use_residual, generator, dropout)
     return encoder, decoder

@@ -8,14 +8,23 @@ cells hold ``i2h``/``h2h``; :class:`RNNLayer` holds ``i2h`` and
 ``recurrence.h2h``.
 
 :class:`RNNLayer` hoists the input projection of the whole sequence into one
-matmul. A GRU layer then runs its recurrence through
-:func:`tennis_torch.ops.gru.gru_recurrence`: the CUDA kernel for tensors on
-the card (forward-only, so it raises when a gradient is required: run it
-under ``torch.inference_mode()``, as the translator does), the plain loop on
-the CPU. The LSTM runs a plain loop on every device, as the JAX package has
-no LSTM kernel.
+matmul. Then, as in the JAX package, the recurrence takes one of two paths:
+
+- inside :func:`gru_decode` (the counterpart of the JAX ``pallas_gru``
+  context, which the translator sets around its decode), a GRU layer runs
+  :func:`tennis_torch.ops.gru.gru_recurrence`: the forward-only CUDA kernel
+  for tensors on the card, its plain version on the CPU. A gradient there
+  raises, on either device;
+- everywhere else (training, the per-epoch loss, every LSTM) a plain
+  differentiable per-step recurrence, the counterpart of the JAX
+  ``_RecurrentStep`` scan, which autograd goes through.
+
+The context decides the path; no path catches a kernel failure.
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 from torch import nn
@@ -24,6 +33,20 @@ from tennis_torch.ops.gru import gru_recurrence
 from tennis_torch.ops.masking import reverse_sequence, sequence_mask
 
 LSTM_FORGET_BIAS = 1.0  # added at run time (reference gnmt.py:410)
+
+_GRU_DECODE = contextvars.ContextVar("gru_decode", default=False)
+
+
+@contextlib.contextmanager
+def gru_decode(enabled: bool = True):
+    """Within this context :class:`RNNLayer` runs a GRU's recurrence through
+    ``gru_recurrence`` (the CUDA kernel on the card): forward only, so no
+    gradient may be required inside it. Off by default."""
+    token = _GRU_DECODE.set(enabled)
+    try:
+        yield
+    finally:
+        _GRU_DECODE.reset(token)
 
 
 def dense(in_features: int, out_features: int, bias: bool = True,
@@ -116,6 +139,19 @@ def _lstm_recurrence(gates_x, h2h, carry, valid_length):
     return torch.stack(ys), (h, c)
 
 
+def _gru_recurrence(gates_x, h2h, h, valid_length):
+    """Plain differentiable GRU loop over (T, B, 3H) input gates with masked
+    carries, step by step as the JAX ``_RecurrentStep`` scan: h2h(h), the
+    gates, the carry frozen and the output zero past ``valid_length``."""
+    ys = []
+    for t in range(gates_x.shape[0]):
+        new_h = _gru_gates(gates_x[t], h2h(h), h)
+        alive = (t < valid_length)[:, None]
+        h = torch.where(alive, new_h, h)
+        ys.append(torch.where(alive, new_h, torch.zeros_like(new_h)))
+    return torch.stack(ys), h
+
+
 class RNNLayer(nn.Module):
     """One recurrent layer over (B, T, C) with optional masking/reversal;
     ``forward`` returns (final state, outputs (B, T, H)). The final state
@@ -150,11 +186,18 @@ class RNNLayer(nn.Module):
               if valid_length is None
               else valid_length.to(inputs.device, torch.int32))
         h2h = self.recurrence.h2h
-        if self.cell_type == "gru":
+        if self.cell_type == "lstm":
+            ys, final = _lstm_recurrence(gx, h2h, initial_state, vl)
+        elif _GRU_DECODE.get():
+            if torch.is_grad_enabled() and any(
+                    t.requires_grad for t in (gx, initial_state, h2h.weight)):
+                raise RuntimeError(
+                    "the GRU decode context is forward-only: no gradient may "
+                    "be required inside gru_decode()")
             ys, final = gru_recurrence(gx, initial_state, h2h.weight.t(),
                                        h2h.bias, vl)
         else:
-            ys, final = _lstm_recurrence(gx, h2h, initial_state, vl)
+            ys, final = _gru_recurrence(gx, h2h, initial_state, vl)
         ys = ys.transpose(0, 1)
         if self.reverse:
             ys = reverse_sequence(ys, valid_length, axis=1)

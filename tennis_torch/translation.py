@@ -3,17 +3,19 @@ encode -> init decoder state -> beam search, returning (samples, scores,
 valid_length) on the host.
 
 The model holds its weights, so ``translate`` takes no variables. It runs
-under ``torch.inference_mode()`` on the model's device, which is what lets
-the encoder's GRU recurrences take the forward-only CUDA kernel on the card
-(the counterpart of the JAX translator's ``pallas_gru`` context). There is
-no per-shape compile cache and no mesh: PyTorch runs eagerly on one card.
+under ``torch.inference_mode()`` on the model's device and encodes inside
+``ops.rnn.gru_decode``, as the JAX translator encodes inside its
+``pallas_gru`` context: the encoder's GRU recurrences take the forward-only
+CUDA kernel on the card. The translator is the only code of the package
+that sets that context. There is no per-shape compile cache and no mesh:
+PyTorch runs eagerly on one card.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from tennis_torch.ops.beam_search import beam_search
+from tennis_torch.ops.rnn import gru_decode
 
 
 class BeamSearchTranslator:
@@ -36,18 +38,21 @@ class BeamSearchTranslator:
         """Device tensors in, device tensors out: (samples (B, K, L) int32,
         scores (B, K) f32, valid_length (B, K) int32)."""
         model = self._model
-        states = model.init_decoder_state(
-            model.encode(src, src_valid_length), src_valid_length)
+        with gru_decode():
+            encoded = model.encode(src, src_valid_length)
+        states = model.init_decoder_state(encoded, src_valid_length)
         return beam_search(model.decode_step, states, src.shape[0],
                            self._beam, self._bos, self._eos, self._max_length,
                            self._alpha, self._K)
 
     def translate(self, src, src_valid_length):
-        """src (B, T, D) array-like, src_valid_length (B,); returns numpy
-        (samples (B, K, L) int32, scores (B, K), valid_length (B, K))."""
+        """src (B, T, D) array-like or tensor, src_valid_length (B,) (float
+        lengths are truncated to int32, as the JAX translator casts them);
+        returns numpy (samples (B, K, L) int32, scores (B, K), valid_length
+        (B, K))."""
         dev = self.device
-        src = torch.as_tensor(np.asarray(src, np.float32)).to(dev)
-        vl = torch.as_tensor(np.asarray(src_valid_length, np.int32)).to(dev)
+        src = torch.as_tensor(src, dtype=torch.float32, device=dev)
+        vl = torch.as_tensor(src_valid_length, device=dev).to(torch.int32)
         samples, scores, lengths = self.translate_tensors(src, vl)
         return samples.cpu().numpy(), scores.cpu().numpy(), lengths.cpu().numpy()
 

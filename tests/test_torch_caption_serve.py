@@ -195,14 +195,16 @@ def test_caption_endpoint(experiment, monkeypatch):
 
 def test_gnmt_flags_match_jax():
     """The port's captioner flag surface: every JAX train_gnmt flag by name
-    (``--num_gpus`` as the alias of ``--num_devices``), with its default."""
+    (``--num_gpus`` as the alias of ``--num_devices``), with its default,
+    plus ``--device``."""
     from tennis_tpu import train_gnmt as jax_gnmt
     from tennis_torch.train_gnmt import parse_args
 
     port = vars(parse_args([]))
     jax_flags = jax_gnmt.FLAGS
     names = {f.name for f in jax_flags.get_key_flags_for_module(jax_gnmt)}
-    assert set(port) == names - {"num_gpus"}
+    assert set(port) == (names - {"num_gpus"}) | {"device"}
+    assert port.pop("device") == "cuda"
     for name, value in port.items():
         assert value == jax_flags[name].default, name
     assert parse_args(["--num_gpus=2"]).num_devices == 2

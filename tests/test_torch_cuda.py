@@ -297,19 +297,20 @@ def test_gru_kernel_refusals(dev):
 
 def test_rnn_layer_takes_the_kernel(dev):
     """A bidirectional GRU layer on the card launches the kernel once per
-    direction under inference mode and agrees with the plain version."""
+    direction inside the decode context, under inference mode, and agrees
+    with the plain version; a gradient inside the context raises."""
     from tennis_torch.ops import gru
-    from tennis_torch.ops.rnn import BiRNN
+    from tennis_torch.ops.rnn import BiRNN, gru_decode
 
     layer = BiRNN("gru", 24, 32, generator=torch.Generator().manual_seed(0))
     layer = layer.to(dev)
     x = torch.randn(3, 9, 24, generator=torch.Generator().manual_seed(1)).to(dev)
     vl = torch.tensor([9, 4, 1], device=dev)
-    with torch.inference_mode():
+    with torch.inference_mode(), gru_decode():
         launches = gru.gru_recurrence.launches
         (hf, hb), out = layer(x, vl)
         assert gru.gru_recurrence.launches == launches + 2
-    with pytest.raises(RuntimeError, match="forward-only"):
+    with pytest.raises(RuntimeError, match="forward-only"), gru_decode():
         layer(x, vl)
     cpu = layer.cpu()
     (hf_ref, hb_ref), out_ref = cpu(x.cpu(), vl.cpu())
@@ -395,13 +396,13 @@ def test_rnn_layer_h512_takes_the_kernel(dev):
     """A GRU layer of 512 (the 0102 captioner at --num_hidden 512) runs on
     the card through the async kernel."""
     from tennis_torch.ops import gru
-    from tennis_torch.ops.rnn import RNNLayer
+    from tennis_torch.ops.rnn import RNNLayer, gru_decode
 
     layer = RNNLayer("gru", 64, 512, generator=torch.Generator().manual_seed(0))
     layer = layer.to(dev)
     x = torch.randn(4, 20, 64, generator=torch.Generator().manual_seed(1)).to(dev)
     vl = torch.tensor([20, 13, 5, 1], device=dev)
-    with torch.inference_mode():
+    with torch.inference_mode(), gru_decode():
         before = dict(gru.gru_recurrence.variant_launches)
         h, out = layer(x, vl)
         assert gru.gru_recurrence.variant_launches == {
@@ -517,6 +518,36 @@ def test_prefetch_pinned_batches_stay_intact(dev):
     want = [8 * 256 * 256 * 3 * i for i in range(20)]
     assert [int(s) for s in sums] == want
     assert stats["batches"] == 20
+
+
+def test_prefetch_moves_every_input(dev):
+    """A captioner batch through the pinned ring with ``moved=4`` (features,
+    caption ids, float32 valid lengths of each) while the consumer's stream
+    is kept busy: every array arrives intact on the card, the indices stay
+    on the host."""
+    import numpy as np
+
+    from tennis_torch.data.loader import prefetch_to_device
+
+    batches = [(np.full((32, 512, 64), i, np.float32),
+                np.full((32, 56), i, np.int32),
+                np.full(32, 512 + i, np.float32), np.full(32, 50 + i, np.float32),
+                np.arange(32) + i) for i in range(12)]
+    busy = torch.randn(2048, 2048, device=dev)
+    got = []
+    for k, (src, tgt, src_vl, tgt_vl, idxs) in enumerate(prefetch_to_device(
+            iter(batches), dev, moved=4)):
+        for _ in range(4):  # device work ahead of the read
+            busy = (busy @ busy).tanh_()
+        assert all(t.device.type == "cuda" for t in (src, tgt, src_vl, tgt_vl))
+        assert isinstance(idxs, np.ndarray) and idxs[0] == k
+        got.append(torch.stack([src.sum(dtype=torch.float64),
+                                tgt.sum(dtype=torch.float64),
+                                src_vl.sum(dtype=torch.float64),
+                                tgt_vl.sum(dtype=torch.float64)]))
+    want = [[32 * 512 * 64 * i, 32 * 56 * i, 32 * (512 + i), 32 * (50 + i)]
+            for i in range(12)]
+    assert torch.stack(got).cpu().tolist() == want
 
 
 # ------------------------------------------------------------------ training
@@ -639,3 +670,75 @@ def test_checkpoint_codec_round_trip_on_the_card(dev, tmp_path):
     for n, t in first.opt_state.trace.items():
         assert torch.equal(t, second.opt_state.trace[n]), n
     assert np.asarray(ckpt.load_raw(path)["step"]) == 1
+
+
+def _captioner(dev, dropout=0.0):
+    from tennis_torch.models.gnmt import NMTModel, get_gnmt_encoder_decoder
+
+    g = torch.Generator().manual_seed(0)
+    enc, dec = get_gnmt_encoder_decoder(hidden_size=32, input_size=24,
+                                        embed_size=8, generator=g,
+                                        dropout=dropout)
+    return NMTModel(20, enc, dec, embed_size=8, hidden_size=32,
+                    generator=g).to(dev)
+
+
+def _caption_batch(dev):
+    g = torch.Generator().manual_seed(1)
+    src = torch.randn(4, 16, 24, generator=g)
+    tgt = torch.randint(0, 20, (4, 8), generator=g, dtype=torch.int32)
+    return (src.to(dev), tgt.to(dev), torch.tensor([16., 9., 3., 1.], device=dev),
+            torch.tensor([8., 5., 3., 2.], device=dev))
+
+
+def test_captioner_train_step_launches_no_gru_kernel(dev):
+    """One Adam step of a small captioner on the card: no GRU kernel launch
+    (training runs the differentiable recurrence, as the JAX package trains
+    through its scan), and the loss and gradients of the CPU's step."""
+    from tennis_torch.models.gnmt import masked_ce_loss
+    from tennis_torch.ops import gru
+    from tennis_torch.parallel.train_step import adam_with_clip, \
+        create_seq2seq_state, make_seq2seq_train_step
+
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        state = create_seq2seq_state(_captioner(device, dropout=0.0),
+                                     adam_with_clip(5.0), 1e-3)
+        step = make_seq2seq_train_step(state, masked_ce_loss)
+        launches = gru.gru_recurrence.launches
+        loss = step(*_caption_batch(device), 7)
+        assert gru.gru_recurrence.launches == launches
+        runs.append((loss.item(), torch.cat(
+            [m.cpu().flatten() for m in state.opt_state.inner.mu.values()])))
+    (loss_c, mu_c), (loss_h, mu_h) = runs
+    assert abs(loss_c - loss_h) <= 1e-5 * abs(loss_h)
+    # Adam's first moment is 0.1 of the clipped gradient (the update itself
+    # turns rounding noise in near-zero gradients into sign flips)
+    assert ((mu_c - mu_h).norm() / mu_h.norm()).item() <= 1e-4
+
+
+def test_captioner_decode_context_takes_the_kernel(dev):
+    """The translator's encode launches the GRU kernel 3 times (bi layer
+    forward and backward, then layer 1); outside the context the encoder
+    launches none and agrees with it; a gradient inside the context
+    raises."""
+    from tennis_torch.ops import gru
+    from tennis_torch.ops.rnn import gru_decode
+    from tennis_torch.translation import BeamSearchTranslator
+
+    model = _captioner(dev).eval()
+    src, _, src_vl, _ = _caption_batch(dev)
+    translator = BeamSearchTranslator(model, 2, 3, max_length=6)
+    launches = gru.gru_recurrence.launches
+    translator.translate(src, src_vl)
+    assert gru.gru_recurrence.launches == launches + 3
+    with torch.inference_mode():
+        with gru_decode():
+            mem_k, _ = model.encode(src, src_vl)
+        assert gru.gru_recurrence.launches == launches + 6
+        mem_p, _ = model.encode(src, src_vl)
+        assert gru.gru_recurrence.launches == launches + 6
+    torch.testing.assert_close(mem_k, mem_p, rtol=0, atol=GRU_TOL)
+    with pytest.raises(RuntimeError, match="forward-only"), gru_decode():
+        model.encode(src, src_vl)
+    assert gru.gru_recurrence.launches == launches + 6

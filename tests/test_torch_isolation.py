@@ -1,5 +1,5 @@
-"""The port stands alone: it imports neither JAX, flax, the JAX package nor
-msgpack (it reads and writes checkpoints with its own codec), imports its
+"""The port stands alone: it imports neither JAX, flax, optax, the JAX
+package nor msgpack (it reads and writes checkpoints with its own codec), imports its
 optional packages only where they are used, and its entry points refuse to
 fall back to the CPU when a GPU was asked for."""
 import os
@@ -24,8 +24,9 @@ def _one_torch_thread():
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "tennis_torch")
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(jax|flax|tennis_tpu|msgpack)\b"
-    r"|(?:__import__|import_module)\(\s*['\"](jax|flax|tennis_tpu|msgpack)\b",
+    r"^\s*(?:import|from)\s+(jax|flax|optax|tennis_tpu|msgpack)\b"
+    r"|(?:__import__|import_module)\(\s*['\"]"
+    r"(jax|flax|optax|tennis_tpu|msgpack)\b",
     re.MULTILINE)
 
 
@@ -48,8 +49,8 @@ def test_no_jax_imports_in_sources():
 
 def test_importing_the_port_loads_no_jax_or_optional_packages():
     """Every module of the port and chip_smoke.py, imported in a fresh
-    interpreter, leave JAX, flax, the JAX package, cv2, msgpack and absl
-    unloaded."""
+    interpreter, leave JAX, flax, optax, the JAX package, cv2, msgpack and
+    absl unloaded."""
     modules = sorted(
         os.path.relpath(os.path.join(root, f), REPO)[:-3].replace(os.sep, ".")
         for root, _, files in os.walk(PORT) for f in files
@@ -61,8 +62,8 @@ def test_importing_the_port_loads_no_jax_or_optional_packages():
             "before = set(sys.modules)\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(n for n in set(sys.modules) - before if "
-            "n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tennis_tpu', "
-            "'cv2', 'msgpack', 'absl'))\n"
+            "n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', "
+            "'tennis_tpu', 'cv2', 'msgpack', 'absl'))\n"
             "print(','.join(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -107,6 +108,12 @@ def test_cuda_without_gpu_raises(tmp_path, monkeypatch):
         load_classifier("DenseNet121", "none", 32)  # device defaults to cuda
     with pytest.raises(RuntimeError, match="no GPU"):
         serve.build_service(serve.parse_args(["--model_id=none"]))
+    from tennis_torch import evaluate_gnmt, train_gnmt
+
+    with pytest.raises(RuntimeError, match="no GPU"):
+        train_gnmt.main(["--feats_model=none"])
+    with pytest.raises(RuntimeError, match="no GPU"):
+        evaluate_gnmt.main(["--feats_model=none", "--force"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -85,6 +85,23 @@ def test_prefetch_on_cpu_yields_the_batches_and_stats():
     assert [int(t[0, 0]) for t in out] == [0, 1, 2]
 
 
+def test_prefetch_moves_the_first_inputs():
+    """``moved=3`` turns a batch's first three arrays into tensors, dtypes
+    kept; the rest stays on the host as it was."""
+    batches = [(np.full((2, 5, 4), i, np.float32), np.full((2, 6), i, np.int32),
+                np.array([5.0, 3.0], np.float32), np.arange(2) + i)
+               for i in range(4)]
+    got = list(prefetch_to_device(iter(batches), "cpu", moved=3))
+    assert len(got) == 4
+    for (*moved, idxs), want in zip(got, batches):
+        for t, w in zip(moved, want[:3]):
+            assert isinstance(t, torch.Tensor) and t.device.type == "cpu"
+            assert t.numpy().dtype == w.dtype
+            np.testing.assert_array_equal(t.numpy(), w)
+        assert isinstance(idxs, np.ndarray)
+        np.testing.assert_array_equal(idxs, want[3])
+
+
 def test_prefetch_surfaces_loader_errors():
     def broken():
         yield np.zeros(4), np.zeros(4), np.arange(4)
