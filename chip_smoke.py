@@ -118,6 +118,35 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    78 dense layers through ``dense_layer_convs`` (widths no TPU kernel
    computes), no dense-kernel launch, logits against the plain-version
    forward;
+7b. the temporal and two-stream models (after ``[train_driver]``), each
+   built by ``train.build_model`` from the driver's flags with seeded
+   random weights in flax naming: ``[cnnrnn_train]``, the 0042 CNN-RNN's
+   train step at its published configuration ((64, 30, 4096) features on
+   the device, bi-GRU 128 in bf16, SGD): 3 warm-up and 20 timed steps
+   (windows/s, device busy and idle share and launches over 2 profiled
+   steps, the largest kernels, peak memory), then the LSTM cell (10 timed);
+   gates: finite losses, 30 steps on one batch lower the loss, the first
+   f32 step on the card against the CPU (loss 1e-5 relative, gradients
+   1e-4 global relative L2), no dense-layer or GRU kernel launch in a step.
+   ``[cnnrnn_driver]``: ``train.fit`` over in-memory windowed-feature splits
+   (train 256, val and test 64 + 37) for 2 epochs of 3 batches, a copy of
+   its epoch 0 resumed to 2 epochs, ``evaluate --metrics_out``; gates: the
+   epoch files and ``scores.txt`` read back bit for bit as saved, the
+   resumed epoch file byte for byte the uninterrupted one, the evaluator's
+   PRF1 the trainer's final test's. ``[two_stream]``: the 0010 net
+   (``--flow twos``, two DenseNet121 streams) at 512^2, batch 64,
+   ``--remat block``, over 256 seeded 6-channel frames on the device: 3
+   warm-up and 10 timed steps (samples/s, ``mfu`` of both streams, idle
+   share, launches a step, peak memory); ``--flow only`` and ``sixc`` 3
+   steps each; after each an evaluation forward at batch 64: 116 (twos) or
+   58 dense launches split as the route names them, logits within 5e-2 of
+   the plain-version forward (``plain_dense_layers``). ``[cnnrnn_clips]``:
+   the CNN-RNN over ``FrameModel(DenseNet121)`` at 512^2, window 30, batch
+   2 (60 frames a forward), remat block, ``--freeze_backbone`` off and on, 3
+   warm-up and 5 timed steps each (clips/s, peak memory); gates: frozen,
+   the backbone's parameters unchanged bit for bit while its BN statistics
+   move; an evaluation forward of 58 dense launches at batch 60 against
+   the plain version. Each prints its wall time;
 8. ``{"kernels": [...]}``, then the card line, then ``{"ok": true, ...}``.
 
 Any failure exits nonzero before the last line. Without a GPU, or without
@@ -227,6 +256,22 @@ REMAT_LOSS_TOL = 2 ** -7  # one bf16 step, relative
 # own update (global L2; cuDNN's backward sums in a varying order)
 DRIVER_TRAIN, DRIVER_EVAL, DRIVER_BATCHES = 256, EXTRACT_BATCH + 37, 3
 RESUME_TOL = 2e-2
+
+# the CNN-RNN (0042, README: --feats_model 0006 --temp_pool gru --window
+# 30): 4096-d features, a bi-GRU of 128 in bf16, 11 classes, the driver's
+# default --batch_size 64 and SGD, over CNNRNN_POOL seeded windows on the
+# device; the LSTM cell timed over fewer steps; its first f32 step on the
+# card against the CPU (TF32 off): relative loss, global relative L2 of the
+# gradients. Over clips: CLIP_BATCH clips of the same window at 512^2.
+CNNRNN_ARGV = ["--backbone=DenseNet121", f"--data_shape={DATA_SHAPE}",
+               "--feats_model=0006", "--temp_pool=gru", "--window=30"]
+CNNRNN_WINDOW, CNNRNN_BATCH, CNNRNN_POOL = 30, 64, 256
+CNNRNN_LSTM_TIMED = 10
+CNNRNN_LOSS_TOL, CNNRNN_GRAD_TOL = 1e-5, 1e-4
+CLIP_BATCH, CLIP_TIMED = 2, 5
+# the two-stream net (0010, --flow twos; the JAX package's figure at
+# --remat block) over seeded 6-channel frames; --flow only and sixc briefly
+TWO_STREAM_FRAMES, TWO_STREAM_TIMED, OTHER_FLOW_STEPS = 256, 10, 3
 
 # (name, T, batch, H, valid lengths): the 0102 serving shape, the lengths of
 # the measured /caption batch (all end before T), --num_hidden 512, the
@@ -888,12 +933,13 @@ def main_path_phase(dev):
 
 
 class MemorySplit:
-    """An in-memory split with what the loader, ``save_features`` and
-    ``train.fit`` read of a TennisSet: ``len``, ``(img, label, idx)`` items,
-    ``save_feature_path``, ``classes`` and the split name. Item i is frame
-    ``i % len(frames)`` (so host memory stays bounded) with label
-    ``i % 11``; ``window`` > 1 makes item i a clip of that many consecutive
-    frames."""
+    """An in-memory split with what the loader, ``save_features``,
+    ``train.fit`` and ``evaluate`` read of a TennisSet: ``len``, ``(img,
+    label, idx)`` items, ``save_feature_path``, ``classes``, ``num_class``,
+    ``_samples`` (``(split, i)``) and the split name. Item i is frame ``i %
+    len(frames)`` (so host memory stays bounded; a "frame" may be a (T, F)
+    feature window) with label ``i % 11``; ``window`` > 1 makes item i a
+    clip of that many consecutive frames."""
 
     def __init__(self, frames, n, feat_dir, split, window=1):
         from tennis_torch.data.tennis_set import DEFAULT_CLASSES
@@ -901,6 +947,8 @@ class MemorySplit:
         self.frames, self.n, self.feat_dir = frames, n, feat_dir
         self._split, self.window = split, window
         self.classes = list(DEFAULT_CLASSES)
+        self.num_class = len(self.classes)
+        self._samples = [(split, i) for i in range(n)]
 
     def __len__(self):
         return self.n
@@ -1474,6 +1522,460 @@ def driver_state_dict(tree):
     return {k: v.numpy() for k, v in from_flax(
         {"params": tree["params"],
          "batch_stats": tree["batch_stats"]}).items()}
+
+
+def reset_kernel_counts():
+    """Every kernel wrapper's launch count to 0 (dense layer and GRU)."""
+    from tennis_torch.ops import dense_block as db
+    from tennis_torch.ops import gru
+
+    reset_dense_counts(db)
+    gru.gru_recurrence.launches = 0
+    gru.gru_recurrence.variant_launches = dict.fromkeys(gru.VARIANTS, 0)
+
+
+def kernel_counts():
+    """(dense-layer kernel launches by route, GRU kernel launches)."""
+    from tennis_torch.ops import dense_block as db
+    from tennis_torch.ops import gru
+
+    return dict(db.dense_layer.variant_launches), gru.gru_recurrence.launches
+
+
+def time_steps(step, batch, warmup, timed, profiled=TRAIN_PROFILED):
+    """``warmup + timed`` calls of ``step(*batch(i))``, each timed to a
+    synchronize, then (``profiled`` > 0) that many more under the device
+    profiler. Returns the losses, the fields every train phase logs (step
+    ms, its range, peak memory; device busy ms, idle share and launches a
+    step, the largest kernels) and the profile by kernel name."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        loss, _ = step(*batch(i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    ms = times[warmup:]
+    med = statistics.median(ms)
+    fields = {"steps": len(losses), "timed_steps": timed, "step_ms": med,
+              "step_ms_min": min(ms), "step_ms_max": max(ms),
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "first_losses": losses[:4], "last_loss": losses[-1],
+              "losses_finite": bool(np.isfinite(losses).all())}
+    if not profiled:
+        return losses, fields, {}
+    walls = []
+
+    def run():
+        t = time.perf_counter()
+        for i in range(profiled):
+            step(*batch(i))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+
+    by_name = device_profile(run)
+    busy_ms = sum(v[0] for k, v in by_name.items()
+                  if not k.startswith(("Memcpy", "Memset")))
+    fields.update(
+        device_busy_ms_per_step=busy_ms / profiled,
+        idle_share=1 - busy_ms / walls[-1],
+        profiled_wall_ms_per_step=walls[-1] / profiled,
+        device_launches_per_step=sum(v[1] for v in by_name.values())
+        / profiled,
+        top=[[k[:60], v[0] / profiled, v[1] // profiled]
+             for k, v in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:8]])
+    return losses, fields, by_name
+
+
+def kernel_launches_in(by_name):
+    """Launches of the dense-layer and GRU kernels in a profile."""
+    names = (*DENSE_KERNELS.values(), *GRU_KERNELS.values())
+    return sum(v[1] for k, v in by_name.items()
+               if any(n in k for n in names))
+
+
+def seeded_model(argv, seed, feats=False):
+    """``train.build_model`` of the driver flags ``argv`` (11 classes),
+    with seeded random weights in flax naming through ``load_flax``; the
+    flags and the model, on the CPU."""
+    from tennis_torch import train as driver
+    from tennis_torch.bridge import load_flax, to_flax
+
+    args = driver.parse_args(argv)
+    model = driver.build_model(args, 11, feats)
+    rng = np.random.default_rng(seed)
+    return args, load_flax(model, random_flax_tree(to_flax(model), rng))
+
+
+def sgd_state(model, args, steps_per_epoch):
+    """The driver's train state and step of ``model`` (on its device):
+    momentum SGD at ``--lr`` with the epoch schedule, ``--freeze_backbone``,
+    the driver's preprocess."""
+    from tennis_torch import train as driver
+    from tennis_torch.parallel.train_step import create_train_state, \
+        make_train_step, sgd_with_schedule
+
+    tx, _ = sgd_with_schedule(args.lr, args.momentum, args.wd,
+                              [int(e) for e in args.lr_steps],
+                              args.lr_factor, steps_per_epoch)
+    state = create_train_state(model, tx, args.freeze_backbone)
+    return state, make_train_step(state, driver.make_preprocess(
+        args, model.dtype), rng_seed=args.seed + 123)
+
+
+def cnnrnn_train_phase(dev):
+    """The 0042 CNN-RNN's train step at its published configuration:
+    (64, 30, 4096) features on the device, bi-GRU 128 in bf16, SGD; 3
+    warm-up and 20 timed steps, then the LSTM cell (10 timed). Gates:
+    finite losses, a repeated batch learnt, the first step on the card
+    against the CPU in f32 (loss, gradients), and no dense-layer or GRU
+    kernel launched in a step."""
+    from tennis_torch.bridge import load_flax
+    from tennis_torch.models import CNNRNN
+    from tennis_torch.parallel.train_step import softmax_ce
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    feats = torch.randn(CNNRNN_POOL, CNNRNN_WINDOW, FEAT_DIM, device=dev,
+                        generator=gen)
+    labels = torch.randint(0, 11, (CNNRNN_POOL,), device=dev, generator=gen)
+    n_batches = CNNRNN_POOL // CNNRNN_BATCH
+
+    def batch(i):
+        lo = i % n_batches * CNNRNN_BATCH
+        return feats[lo:lo + CNNRNN_BATCH], labels[lo:lo + CNNRNN_BATCH]
+
+    trees, finite, in_steps = {}, True, 0
+    reset_kernel_counts()
+    for cell, timed in (("gru", TRAIN_TIMED), ("lstm", CNNRNN_LSTM_TIMED)):
+        argv = [a for a in CNNRNN_ARGV if not a.startswith("--temp_pool")]
+        args, model = seeded_model(argv + [f"--temp_pool={cell}"], SEED + 10,
+                                   feats=True)
+        trees[cell] = {k: v.clone() for k, v in model.state_dict().items()}
+        state, step = sgd_state(model.to(dev), args, n_batches)
+        losses, fields, by_name = time_steps(step, batch, TRAIN_WARMUP, timed)
+        finite = finite and fields["losses_finite"]
+        in_steps += kernel_launches_in(by_name)
+        log("cnnrnn_train", cell=cell, batch=CNNRNN_BATCH,
+            window=CNNRNN_WINDOW, feat_dim=FEAT_DIM, hidden=128,
+            dtype="bfloat16",
+            windows_per_s=CNNRNN_BATCH / fields["step_ms"] * 1e3, **fields)
+        del state, step, model
+    dense, gru_n = kernel_counts()
+
+    # 30 steps on one repeated batch
+    args, model = seeded_model(CNNRNN_ARGV, SEED + 10, feats=True)
+    _, step = sgd_state(model.to(dev), args, n_batches)
+    overfit = [step(*batch(0))[0].item() for _ in range(OVERFIT_STEPS)]
+    lowered = statistics.mean(overfit[-5:]) < statistics.mean(overfit[:5])
+    del model, step
+
+    # the first step in f32 (TF32 off), card against CPU
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        model = CNNRNN(None, 11, 128, "gru", dtype=torch.float32,
+                       feature_dim=FEAT_DIM)
+        model.load_state_dict(trees["gru"])
+        model.to(device)
+        x, y = (t.to(device) for t in batch(0))
+        loss = softmax_ce(model(x, train=True), y)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        runs.append((loss.item(), [g.cpu() for g in grads]))
+        del model
+    (loss_c, g_c), (loss_h, g_h) = runs
+    loss_rel = abs(loss_c - loss_h) / abs(loss_h)
+    grad_rel = (torch.cat([(a - b).flatten() for a, b in zip(g_c, g_h)]).norm()
+                / torch.cat([b.flatten() for b in g_h]).norm()).item()
+    no_kernel = (sum(dense.values()) == 0 and gru_n == 0 and in_steps == 0)
+    ok = (finite and lowered and loss_rel <= CNNRNN_LOSS_TOL
+          and grad_rel <= CNNRNN_GRAD_TOL and no_kernel)
+    log("cnnrnn_train_check", losses_finite=finite, overfit_losses=overfit,
+        overfit_lowered=lowered, loss_card=loss_c, loss_cpu=loss_h,
+        loss_rel=loss_rel, loss_tol=CNNRNN_LOSS_TOL, grad_rel_l2=grad_rel,
+        grad_tol=CNNRNN_GRAD_TOL, dense_launches=dense, gru_launches=gru_n,
+        kernel_launches_profiled=in_steps, wall_s=time.perf_counter() - t_phase,
+        ok=ok)
+    if not ok:
+        raise SystemExit("the CNN-RNN's train step failed its gates")
+
+
+def cnnrnn_driver_phase(dev):
+    """``train.fit`` of the 0042 CNN-RNN over in-memory windowed-feature
+    splits (train DRIVER_TRAIN windows, val and test DRIVER_EVAL) for 2
+    epochs of DRIVER_BATCHES steps; a copy of its epoch 0 resumed to 2
+    epochs; then ``evaluate --metrics_out``. Gates: the epoch files and
+    scores.txt read back bit for bit as saved, the resumed run's epoch file
+    equal to the uninterrupted one's, the evaluation's PRF1 that of the
+    trainer's final test, no kernel launched."""
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    from tennis_torch import evaluate
+    from tennis_torch import train as driver
+    from tennis_torch.data.loader import DataLoader
+    from tennis_torch.utils import checkpoint as ckpt
+    from tennis_torch.utils import msgpack_codec
+    from tennis_torch.utils.experiments import experiment_dir
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 11)
+    pool = rng.standard_normal((CNNRNN_BATCH, CNNRNN_WINDOW, FEAT_DIM),
+                               dtype=np.float32)
+    argv = CNNRNN_ARGV + [f"--batch_size={CNNRNN_BATCH}", "--epochs=2",
+                          f"--max_batches={DRIVER_BATCHES}",
+                          "--log_interval=1", "--model_id=cr"]
+    splits = {"train": MemorySplit(pool, DRIVER_TRAIN, None, "train"),
+              "val": MemorySplit(pool[::-1], DRIVER_EVAL, None, "val"),
+              "test": MemorySplit(pool[1:], DRIVER_EVAL, None, "test")}
+
+    def run_fit(exp_dir):
+        args, model = seeded_model(argv, SEED + 11, feats=True)
+        loaders = {k: DataLoader(ds, CNNRNN_BATCH, shuffle=k == "train",
+                                 seed=args.seed, num_workers=8,
+                                 drop_last=k == "train")
+                   for k, ds in splits.items()}
+        return driver.fit(args, model, loaders, exp_dir, dev)
+
+    saved, scored = [], []
+    save, append = ckpt.AsyncCheckpointer.save, ckpt.append_score
+
+    def recording_save(self, path, tree):
+        saved.append((path, tree))
+        return save(self, path, tree)
+
+    def recording_score(exp_dir, epoch, score):
+        scored.append((exp_dir, f"{epoch}\t{score}\n"))
+        return append(exp_dir, epoch, score)
+
+    cwd = os.getcwd()
+    try:
+        with tempfile.TemporaryDirectory() as work, \
+                mock.patch.object(ckpt.AsyncCheckpointer, "save",
+                                  recording_save), \
+                mock.patch.object(ckpt, "append_score", recording_score), \
+                mock.patch.object(driver, "make_eval_dataset",
+                                  lambda a, split, every_n=None:
+                                  splits[split]):
+            os.chdir(work)
+            exp = experiment_dir("vision", "cr")
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            _, test_metrics = run_fit(exp)
+            torch.cuda.synchronize()
+            wall_fit = time.perf_counter() - t0
+            files = sorted(f for f in os.listdir(exp) if f != "tb")
+            resumed_exp = experiment_dir("vision", "cr_resumed")
+            os.makedirs(resumed_exp, exist_ok=True)
+            shutil.copy(ckpt.epoch_path(exp, 0), resumed_exp)
+            with open(os.path.join(resumed_exp, "scores.txt"), "w") as f:
+                f.write(scored[0][1])
+            t0 = time.perf_counter()
+            run_fit(resumed_exp)
+            wall_resume = time.perf_counter() - t0
+            uninterrupted, resumed = (ckpt.load_raw(ckpt.epoch_path(e, 1))
+                                      for e in (exp, resumed_exp))
+            resumed_equal = msgpack_codec.serialize(uninterrupted) == \
+                msgpack_codec.serialize(resumed)
+            params_max_abs = max(float(np.abs(a - b).max()) for a, b in zip(
+                driver_state_dict(uninterrupted).values(),
+                driver_state_dict(resumed).values()))
+            identical = len(saved) == 3 and all(
+                msgpack_codec.serialize(ckpt.load_raw(p))
+                == msgpack_codec.serialize(t) for p, t in saved)
+            with open(os.path.join(exp, "scores.txt")) as f:
+                identical = identical and f.read() == "".join(
+                    row for d, row in scored if d == exp)
+            metrics_path = os.path.join(work, "metrics.json")
+            t0 = time.perf_counter()
+            results, _, metrics = evaluate.evaluate_model(evaluate.parse_args(
+                argv + [f"--metrics_out={metrics_path}"]))
+            wall_eval = time.perf_counter() - t0
+            with open(metrics_path) as f:
+                dumped = json.load(f)
+            dense, gru_n = kernel_counts()
+    finally:
+        os.chdir(cwd)
+    probs = np.stack(list(results.values()))
+    probs_ok = (probs.shape == (DRIVER_EVAL, 11)
+                and bool(np.isfinite(probs).all())
+                and bool(np.allclose(probs.sum(-1), 1, atol=1e-4)))
+    same_as_fit = dumped == metrics["prf1"].get_dict() == \
+        test_metrics["prf1"].get_dict()
+    ok = (files == ["0000.params", "0001.params", "scores.txt"] and identical
+          and resumed_equal and probs_ok and same_as_fit
+          and sum(dense.values()) == 0 and gru_n == 0)
+    log("cnnrnn_driver", epochs=2, steps_per_epoch=DRIVER_BATCHES,
+        batch=CNNRNN_BATCH, train_windows=DRIVER_TRAIN,
+        eval_windows=DRIVER_EVAL, files=files,
+        saved_read_back_identical=identical, resumed_equal=resumed_equal,
+        resumed_params_max_abs_diff=params_max_abs, evaluated=len(results),
+        probs_ok=probs_ok, metrics_equal_fit_test=same_as_fit,
+        test_AVG_NB_f1=dumped.get("AVG_NB_f1"), dense_launches=dense,
+        gru_launches=gru_n, fit_wall_s=wall_fit, resume_wall_s=wall_resume,
+        evaluate_wall_s=wall_eval, wall_s=time.perf_counter() - t_phase,
+        ok=ok)
+    if not ok:
+        raise SystemExit("the CNN-RNN driver failed its gates")
+
+
+def eval_against_plain(model, dev, x, streams):
+    """One evaluation forward of ``x`` through ``make_eval_step``, the
+    launch counts set to 0 just before and read just after; its logits
+    against the plain-version forward on the same card. Returns the log
+    fields, whether it passed, and the dense launches by route."""
+    from tennis_torch.inference import make_eval_step, prepare_input
+    from tennis_torch.ops import dense_block as db
+
+    step = make_eval_step(model, dev)
+    batch = x.shape[0] * (x.shape[1] if x.dim() == 5 else 1)
+    reset_kernel_counts()
+    got = step(x)
+    torch.cuda.synchronize()
+    by_route, gru_n = kernel_counts()
+    with torch.inference_mode(), db.plain_dense_layers(model):
+        want = model(prepare_input(x, model.dtype))
+    torch.cuda.synchronize()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    top1 = bool((got.argmax(-1) == want.argmax(-1)).all())
+    routed = {v: streams * n for v, n in routed_launches(db, batch).items()}
+    ok = (by_route == routed and gru_n == 0 and rel <= LOGIT_TOL and top1
+          and bool(torch.isfinite(got).all()))
+    return ({"eval_frames_per_forward": batch,
+             "eval_launches": sum(by_route.values()),
+             "eval_launches_by_route": by_route,
+             "routed_launches_by_route": routed, "eval_logits_rel_err": rel,
+             "eval_top1_agrees": top1, "logit_tol": LOGIT_TOL}, ok, by_route)
+
+
+def two_stream_phase(dev):
+    """The 0010 two-stream net (``--flow twos``, two DenseNet121 streams)
+    at 512^2, batch 64, ``--remat block``, over TWO_STREAM_FRAMES seeded
+    6-channel frames on the device: 3 warm-up and TWO_STREAM_TIMED timed
+    steps; then ``--flow only`` and ``sixc``, OTHER_FLOW_STEPS steps each.
+    After each, an evaluation forward at batch 64: 58 dense launches a
+    stream as routed, logits against the plain version. Returns the
+    evaluations' dense launches by route."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    frames = torch.randint(0, 256, (TWO_STREAM_FRAMES, DATA_SHAPE,
+                                    DATA_SHAPE, 6), dtype=torch.uint8,
+                           device=dev, generator=gen)
+    labels = torch.randint(0, 11, (TWO_STREAM_FRAMES,), device=dev,
+                           generator=gen)
+    n_batches = TWO_STREAM_FRAMES // TRAIN_BATCH
+
+    def batch(i):
+        lo = i % n_batches * TRAIN_BATCH
+        return frames[lo:lo + TRAIN_BATCH], labels[lo:lo + TRAIN_BATCH]
+
+    launches, all_ok = None, True
+    for flow, timed in (("twos", TWO_STREAM_TIMED),
+                        ("only", OTHER_FLOW_STEPS), ("sixc", OTHER_FLOW_STEPS)):
+        t0 = time.perf_counter()
+        args, model = seeded_model(["--backbone=DenseNet121",
+                                    f"--data_shape={DATA_SHAPE}",
+                                    f"--flow={flow}", "--remat=block"],
+                                   SEED + 12)
+        state, step = sgd_state(model.to(dev), args, n_batches)
+        streams = 2 if flow == "twos" else 1
+        warmup = TRAIN_WARMUP if flow == "twos" else 0
+        _, fields, _ = time_steps(step, batch, warmup, timed,
+                                  TRAIN_PROFILED if flow == "twos" else 0)
+        flops = streams * train_flops(TRAIN_BATCH)
+        evals, ok, by_route = eval_against_plain(model, dev, batch(0)[0],
+                                                 streams)
+        ok = ok and fields["losses_finite"]
+        all_ok = all_ok and ok
+        launches = by_route if launches is None else {
+            v: launches[v] + n for v, n in by_route.items()}
+        log("two_stream", flow=flow, streams=streams, batch=TRAIN_BATCH,
+            data_shape=DATA_SHAPE, remat="block",
+            samples_per_s=TRAIN_BATCH / fields["step_ms"] * 1e3,
+            model_gflop_per_step=flops / 1e9,
+            mfu=flops / (fields["step_ms"] / 1e3) / PEAK_BF16_FLOPS,
+            **fields, **evals, wall_s=time.perf_counter() - t0, ok=ok)
+        del state, step, model
+        torch.cuda.empty_cache()
+    log("two_stream_check", wall_s=time.perf_counter() - t_phase, ok=all_ok)
+    if not all_ok:
+        raise SystemExit("the two-stream net failed its gates")
+    return launches
+
+
+def cnnrnn_clips_phase(dev, frames):
+    """The CNN-RNN over clips: ``FrameModel(DenseNet121)`` at 512^2
+    time-distributed over CLIP_BATCH clips of CNNRNN_WINDOW frames (one
+    forward of their frames), bi-GRU 128, ``--remat block``, with
+    ``--freeze_backbone`` off and on: 3 warm-up and CLIP_TIMED timed steps
+    each. Gates: frozen, the backbone's parameters unchanged bit for bit
+    while its BN statistics and the rest move; an evaluation forward of 58
+    dense launches at batch CLIP_BATCH * CNNRNN_WINDOW, logits against the
+    plain version. Returns that forward's dense launches by route."""
+    t_phase = time.perf_counter()
+    images = torch.from_numpy(frames).to(dev)
+    labels = torch.arange(CLIP_BATCH * 4, device=dev) % 11
+    k = len(frames)
+
+    def batch(i):
+        idx = [(((i * CLIP_BATCH + b) * CNNRNN_WINDOW + t) * 7) % k
+               for b in range(CLIP_BATCH) for t in range(CNNRNN_WINDOW)]
+        clips = images[idx].reshape(CLIP_BATCH, CNNRNN_WINDOW,
+                                    *images.shape[1:])
+        return clips, labels[i % 4 * CLIP_BATCH:(i % 4 + 1) * CLIP_BATCH]
+
+    all_ok, launches = True, None
+    for frozen in (False, True):
+        t0 = time.perf_counter()
+        argv = ["--backbone=DenseNet121", f"--data_shape={DATA_SHAPE}",
+                "--temp_pool=gru", f"--window={CNNRNN_WINDOW}",
+                "--remat=block"] + (
+            ["--freeze_backbone"] if frozen else [])
+        args, model = seeded_model(argv, SEED + 13)
+        model.to(dev)
+        before = {k_: v.detach().clone() for k_, v in
+                  model.state_dict().items()}
+        state, step = sgd_state(model, args, 4)
+        _, fields, _ = time_steps(step, batch, TRAIN_WARMUP, CLIP_TIMED, 0)
+        after = model.state_dict()
+        moved = {k_: not torch.equal(before[k_], after[k_]) for k_ in before}
+        backbone_params = [n for n, _ in model.named_parameters()
+                           if n.startswith("model.backbone.")]
+        stats = [n for n, _ in model.named_buffers()]
+        rest = [n for n, _ in model.named_parameters()
+                if not n.startswith("model.backbone.")]
+        if frozen:
+            ok = (not any(moved[n] for n in backbone_params)
+                  and all(moved[n] for n in stats)
+                  and all(moved[n] for n in rest))
+        else:
+            ok = all(moved[n] for n in backbone_params + stats + rest)
+        evals = {}
+        if not frozen:
+            evals, eval_ok, launches = eval_against_plain(
+                model, dev, batch(0)[0], 1)
+            ok = ok and eval_ok
+        ok = ok and fields["losses_finite"]
+        all_ok = all_ok and ok
+        log("cnnrnn_clips", freeze_backbone=frozen, clips=CLIP_BATCH,
+            window=CNNRNN_WINDOW, data_shape=DATA_SHAPE, remat="block",
+            clips_per_s=CLIP_BATCH / fields["step_ms"] * 1e3,
+            frames_per_s=CLIP_BATCH * CNNRNN_WINDOW / fields["step_ms"] * 1e3,
+            backbone_params_moved=sum(moved[n] for n in backbone_params),
+            backbone_params=len(backbone_params),
+            stats_moved=sum(moved[n] for n in stats), stats=len(stats),
+            rest_moved=sum(moved[n] for n in rest), rest=len(rest),
+            **fields, **evals, wall_s=time.perf_counter() - t0, ok=ok)
+        del state, step, model, before
+        torch.cuda.empty_cache()
+    del images
+    log("cnnrnn_clips_check", wall_s=time.perf_counter() - t_phase, ok=all_ok)
+    if not all_ok:
+        raise SystemExit("the CNN-RNN over clips failed its gates")
+    return launches
 
 
 def _round_trip_us(launch):
@@ -2363,7 +2865,9 @@ def dense_entry(name, variant, stack, launches, max_abs):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": sum(r["library_ms"] for r in mine),
         "work": work + "; launches count the /predict batches served and the "
-                       "[extract], [evaluate] and [train_driver] runs",
+                       "[extract], [evaluate] and [train_driver] runs and the "
+                       "evaluation forwards of [two_stream] and "
+                       "[cnnrnn_clips]",
     }
 
 
@@ -2437,6 +2941,11 @@ def main() -> int:
     train_phase(torch.device("cuda"), frames)
     counts = train_driver_phase(torch.device("cuda"), frames)
     launches = {v: launches[v] + counts[v] for v in launches}
+    cnnrnn_train_phase(torch.device("cuda"))
+    cnnrnn_driver_phase(torch.device("cuda"))
+    for counts in (two_stream_phase(torch.device("cuda")),
+                   cnnrnn_clips_phase(torch.device("cuda"), frames)):
+        launches = {v: launches[v] + counts[v] for v in launches}
     del frames
     log("route_summary", routed_is_fastest_by_batch={
         b: {"fastest": a, "shapes": n} for b, (a, n) in agree.items()})

@@ -9,11 +9,17 @@ its confusion matrix and writes the PRF1 dict as JSON to ``--metrics_out``.
 ``--temp_pool max|mean`` scores the donor named by ``--feats_model`` (its
 dumped features) or ``--backbone_from_id`` (frames through its backbone)
 with its features pooled over ``--window`` and its own head applied.
-``--save_feats`` dumps the features of ``--split`` only. ``--vis`` is not
-ported yet.
+``--save_feats`` dumps the features of ``--split`` only (a ``FrameModel``'s;
+the CNN-RNN and the two-stream net raise ``ValueError``, as in the JAX
+driver). The model is the one the flags compose (``train.build_model``):
+the CNN-RNN over features or clips (``--window > 1 --temp_pool gru|lstm``),
+the two-stream net (``--flow twos|only``), the 6-channel DenseNet (``--flow
+sixc``) or the framewise classifier. ``--vis`` is not ported yet.
 
 Run: ``python -m tennis_torch.evaluate --model_id 0006 --backbone
-DenseNet121`` (``--device cpu`` off the GPU).
+DenseNet121`` (``--device cpu`` off the GPU; add the training flags of the
+experiment, e.g. ``--feats_model 0006 --temp_pool gru --window 30`` or
+``--flow twos``).
 """
 from __future__ import annotations
 
@@ -65,7 +71,8 @@ def evaluate_model(args: argparse.Namespace):
     test_set = train_driver.make_eval_dataset(args, args.split)
     log.info(test_set)
     feats = bool(args.feats_model)
-    # the pooled wrap loads a framewise FrameModel; the rest needs one too
+    # the pooled wrap loads the framewise donor; the rest, the model the
+    # flags compose
     model = train_driver.build_model(args, test_set.num_class,
                                      feats and not pool)
     loader = DataLoader(
@@ -84,6 +91,7 @@ def evaluate_model(args: argparse.Namespace):
     log.info("loaded epoch %d (score=%s) from %s", epoch, score, src_dir)
 
     if args.save_feats:
+        train_driver.refuse_feature_dump(model)
         train_driver.save_features(make_extract_features(model, device),
                                    [test_set], {args.split: loader}, device)
         return {}, {}, {}

@@ -40,13 +40,16 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 
 def build_frame_model(backbone: str, num_classes: int, data_shape: int,
                       dtype=torch.bfloat16, remat: str | None = None,
-                      generator: torch.Generator | None = None):
+                      generator: torch.Generator | None = None,
+                      in_channels: int = 3):
     """``FrameModel(get_backbone(backbone))`` with its head sized for square
-    ``data_shape`` inputs; ``remat`` as the backbone takes it."""
+    ``data_shape`` inputs of ``in_channels`` (6 for ``--flow sixc``);
+    ``remat`` as the backbone takes it."""
     from tennis_torch.models import FrameModel, backbone_feature_dim, \
         get_backbone
 
-    return FrameModel(get_backbone(backbone, dtype=dtype, remat=remat,
+    return FrameModel(get_backbone(backbone, in_channels=in_channels,
+                                   dtype=dtype, remat=remat,
                                    generator=generator),
                       num_classes=num_classes, dtype=dtype,
                       feature_dim=backbone_feature_dim(backbone, data_shape),
@@ -105,32 +108,45 @@ def make_extract_features(model, device: torch.device):
     return extract
 
 
+def prepare_input(x: torch.Tensor, dtype) -> torch.Tensor:
+    """uint8 NHWC frames (B, S, S, C) or clips (B, T, S, S, C), C 3 or 6,
+    -> ``device_prepare`` over the frames, in ``dtype``; features (any
+    other dtype) as given."""
+    from tennis_torch.data.transforms import device_prepare
+
+    if x.dtype != torch.uint8:
+        return x
+    flat = x.reshape((-1,) + tuple(x.shape[-3:]))
+    return device_prepare(flat, dtype).reshape(x.shape)
+
+
 def make_eval_step(model, device: torch.device, pool: str | None = None,
                    feats: bool = False):
-    """Move ``model`` (a ``FrameModel``) to ``device``, fold its BN operands
-    once, and return ``step(batch) -> f32 logits`` on ``device``. uint8
-    input (frames (B, S, S, 3) or clips (B, T, S, S, 3)) goes through
-    ``device_prepare`` first. With ``pool`` ("max" or "mean") the step is the
-    ``TemporalPooling(wrap_head=True)`` wrap: the backbone features of each
-    clip's frames in one forward (or, with ``feats``, (B, T, F) features as
-    given) pooled over T, then the model's own head. The fold is of the
-    weights at this call: after they change, make the step anew (the
-    trainer does before every val and test pass; a train-mode forward also
-    drops the fold, so a stale one is never reused)."""
-    from tennis_torch.data.transforms import device_prepare
-    from tennis_torch.models import TemporalPooling
+    """Move ``model`` (a ``FrameModel``, ``CNNRNN`` or ``TwoStreamModel``)
+    to ``device``, fold the BN operands of each of its DenseNets once, and
+    return ``step(batch) -> f32 logits`` on ``device``: :func:`prepare_input`
+    (uint8 frames or clips), then the eval forward (on a GPU every dense
+    layer in a dense-layer kernel). With ``pool`` ("max" or "mean") the step
+    is the ``TemporalPooling(wrap_head=True)`` wrap of a ``FrameModel``: the
+    backbone features of each clip's frames in one forward (or, with
+    ``feats``, (B, T, F) features as given) pooled over T, then the model's
+    own head. The fold is of the weights at this call: after they change,
+    make the step anew (the trainer does before every val and test pass; a
+    train-mode forward also drops the fold, so a stale one is never
+    reused)."""
+    from tennis_torch.models import DenseNet, TemporalPooling
 
     model = model.to(device).eval()
-    model.backbone.fold()
+    for m in model.modules():  # a frame model's backbone, a clip CNN-RNN's
+        if isinstance(m, DenseNet):  # model.backbone, model_rgb/model_flow
+            m.fold()
     net = model if pool is None else TemporalPooling(
         model, pool=pool, feats=feats, wrap_head=True)
 
     @torch.inference_mode()
     def step(batch) -> torch.Tensor:
         x = torch.as_tensor(batch).to(device)
-        if x.dtype == torch.uint8:
-            x = device_prepare(x, model.dtype)
-        return net(x)
+        return net(prepare_input(x, model.dtype))
 
     return step
 

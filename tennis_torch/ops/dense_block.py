@@ -31,9 +31,13 @@ CUDA tensor it launches one of the kernels or raises.
 and the final BN/pool are plain torch ops, every dense layer goes through
 ``dense_layer`` (DenseNet121: 58 launches per forward). It takes the BN-folded
 operands that ``DenseNet.operands()`` prepares once at load.
+``plain_dense_layers(model)`` is the yardstick of a comparison: within it
+every DenseNet of a model (a two-stream net's two, a clip CNN-RNN's one)
+takes its eval forward through the plain version, on any device.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import NamedTuple
 
@@ -407,3 +411,30 @@ def frame_model_apply(model, x: torch.Tensor, layer=dense_layer) -> torch.Tensor
     feats = densenet_features(backbone.spec, backbone.operands(), x,
                               backbone.dtype, layer=layer)
     return model.head(feats)
+
+
+@contextlib.contextmanager
+def plain_dense_layers(model):
+    """Within this context every ``DenseNet`` of ``model`` runs its eval
+    forward with each dense layer through :func:`dense_layer_reference`, on
+    any device, and counts no launch: the plain version that a comparison
+    holds the kernels against. Only its caller chooses it; no kernel
+    failure leads here."""
+    from tennis_torch.models.backbones.densenet import DenseNet
+
+    def plain(net):
+        def forward(x, train=False):
+            if train:
+                raise ValueError("the plain version is of the eval forward")
+            return densenet_features(net.spec, net.operands(), x, net.dtype,
+                                     layer=dense_layer_reference)
+        return forward
+
+    nets = [m for m in model.modules() if isinstance(m, DenseNet)]
+    for net in nets:
+        net.forward = plain(net)
+    try:
+        yield model
+    finally:
+        for net in nets:
+            del net.forward

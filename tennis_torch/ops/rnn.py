@@ -20,6 +20,12 @@ matmul. Then, as in the JAX package, the recurrence takes one of two paths:
   ``_RecurrentStep`` scan, which autograd goes through.
 
 The context decides the path; no path catches a kernel failure.
+
+:class:`RNNLayer` and :class:`BiRNN` compute in a ``dtype`` (f32 by
+default, the GNMT's), with f32 parameters: in another dtype (the CNN-RNN's
+bf16) the rounding points are the flax modules', i.e. each projection's
+product and then its bias sum rounded to the dtype (``Dense(dtype)``), the
+carry and every gate op in the dtype.
 """
 from __future__ import annotations
 
@@ -59,6 +65,16 @@ def dense(in_features: int, out_features: int, bias: bool = True,
     if bias:
         nn.init.zeros_(layer.bias)
     return layer
+
+
+def _affine(layer: nn.Linear, dtype):
+    """``x -> layer(x)`` in ``dtype``: in f32 as ``nn.Linear`` computes it;
+    in another dtype as flax's ``Dense(dtype, param_dtype=f32)`` rounds it,
+    the product rounded to the dtype and then the bias sum."""
+    if dtype == torch.float32:
+        return lambda x: layer(x.float())
+    w, b = layer.weight.t().to(dtype), layer.bias.to(dtype)
+    return lambda x: x.to(dtype) @ w + b
 
 
 def _gru_gates(gx, gh, h):
@@ -127,7 +143,8 @@ def make_cell(cell_type: str, input_size: int, hidden_size: int,
 
 
 def _lstm_recurrence(gates_x, h2h, carry, valid_length):
-    """Plain LSTM loop over (T, B, 4H) input gates with masked carries."""
+    """Plain LSTM loop over (T, B, 4H) input gates with masked carries;
+    ``h2h`` maps the carry to its gates."""
     h, c = carry
     ys = []
     for t in range(gates_x.shape[0]):
@@ -142,7 +159,8 @@ def _lstm_recurrence(gates_x, h2h, carry, valid_length):
 def _gru_recurrence(gates_x, h2h, h, valid_length):
     """Plain differentiable GRU loop over (T, B, 3H) input gates with masked
     carries, step by step as the JAX ``_RecurrentStep`` scan: h2h(h), the
-    gates, the carry frozen and the output zero past ``valid_length``."""
+    gates, the carry frozen and the output zero past ``valid_length``;
+    ``h2h`` maps the carry to its gates."""
     ys = []
     for t in range(gates_x.shape[0]):
         new_h = _gru_gates(gates_x[t], h2h(h), h)
@@ -154,18 +172,20 @@ def _gru_recurrence(gates_x, h2h, h, valid_length):
 
 class RNNLayer(nn.Module):
     """One recurrent layer over (B, T, C) with optional masking/reversal;
-    ``forward`` returns (final state, outputs (B, T, H)). The final state
-    is (B, H) for a GRU and (h, c) for an LSTM."""
+    ``forward`` returns (final state, outputs (B, T, H)) in ``dtype``. The
+    final state is (B, H) for a GRU and (h, c) for an LSTM."""
 
     def __init__(self, cell_type: str, input_size: int, hidden_size: int,
                  reverse: bool = False,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype=torch.float32):
         super().__init__()
         if cell_type not in ("gru", "lstm"):
             raise ValueError(f"unknown cell type {cell_type!r}")
         self.cell_type = cell_type
         self.hidden_size = hidden_size
         self.reverse = reverse
+        self.dtype = dtype
         n_gates = 4 if cell_type == "lstm" else 3
         self.i2h = dense(input_size, n_gates * hidden_size, generator=generator)
         self.recurrence = nn.Module()
@@ -174,30 +194,34 @@ class RNNLayer(nn.Module):
 
     def forward(self, inputs, valid_length=None, initial_state=None):
         B, T = inputs.shape[:2]
-        H = self.hidden_size
+        H, dt = self.hidden_size, self.dtype
         if initial_state is None:
-            z = torch.zeros(B, H, device=inputs.device)
+            z = torch.zeros(B, H, device=inputs.device, dtype=dt)
             initial_state = (z, z) if self.cell_type == "lstm" else z
         if self.reverse:
             inputs = reverse_sequence(inputs, valid_length, axis=1)
         # hoisted input projection: one sequence-wide matmul
-        gx = self.i2h(inputs.float()).transpose(0, 1)  # (T, B, G)
+        gx = _affine(self.i2h, dt)(inputs).transpose(0, 1)  # (T, B, G)
         vl = (torch.full((B,), T, dtype=torch.int32, device=inputs.device)
               if valid_length is None
               else valid_length.to(inputs.device, torch.int32))
         h2h = self.recurrence.h2h
         if self.cell_type == "lstm":
-            ys, final = _lstm_recurrence(gx, h2h, initial_state, vl)
+            ys, final = _lstm_recurrence(gx, _affine(h2h, dt), initial_state,
+                                         vl)
         elif _GRU_DECODE.get():
             if torch.is_grad_enabled() and any(
                     t.requires_grad for t in (gx, initial_state, h2h.weight)):
                 raise RuntimeError(
                     "the GRU decode context is forward-only: no gradient may "
                     "be required inside gru_decode()")
-            ys, final = gru_recurrence(gx, initial_state, h2h.weight.t(),
-                                       h2h.bias, vl)
+            # the kernel runs in f32, as the JAX package's Pallas path
+            ys, final = gru_recurrence(gx.float(), initial_state.float(),
+                                       h2h.weight.t(), h2h.bias, vl)
+            ys, final = ys.to(dt), final.to(dt)
         else:
-            ys, final = _gru_recurrence(gx, h2h, initial_state, vl)
+            ys, final = _gru_recurrence(gx, _affine(h2h, dt), initial_state,
+                                        vl)
         ys = ys.transpose(0, 1)
         if self.reverse:
             ys = reverse_sequence(ys, valid_length, axis=1)
@@ -207,14 +231,18 @@ class RNNLayer(nn.Module):
 
 
 class BiRNN(nn.Module):
-    """Forward + reverse :class:`RNNLayer` (``fwd``, ``bwd``), outputs
-    concatenated on features; final state ``(fwd_state, bwd_state)``."""
+    """Forward + reverse :class:`RNNLayer` (``fwd``, ``bwd``) in ``dtype``,
+    outputs concatenated on features; final state ``(fwd_state,
+    bwd_state)``."""
 
     def __init__(self, cell_type: str, input_size: int, hidden_size: int,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype=torch.float32):
         super().__init__()
-        self.fwd = RNNLayer(cell_type, input_size, hidden_size, False, generator)
-        self.bwd = RNNLayer(cell_type, input_size, hidden_size, True, generator)
+        self.fwd = RNNLayer(cell_type, input_size, hidden_size, False,
+                            generator, dtype)
+        self.bwd = RNNLayer(cell_type, input_size, hidden_size, True,
+                            generator, dtype)
 
     def forward(self, inputs, valid_length=None):
         l_final, l_out = self.fwd(inputs, valid_length)

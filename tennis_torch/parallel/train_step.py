@@ -11,10 +11,12 @@ momentum))`` op for op, in f32: ``g += wd p`` on every trained parameter,
 ``trace = g + m trace`` (zero at start), ``p += -lr(k) trace``, with
 ``lr(k) = lr * factor ** #{boundaries <= k}`` (boundaries at ``epoch *
 steps_per_epoch``, optax's ``piecewise_constant_schedule``) and ``k`` the
-optimizer's update count. Under ``freeze_backbone`` the backbone's
-parameters get no update, no weight decay and no trace (optax's
-``multi_transform`` with ``set_to_zero``), while its BN still runs in train
-mode and moves its running statistics, as the JAX step does.
+optimizer's update count. Under ``freeze_backbone`` every parameter with a
+``backbone`` component in its name (``backbone.*``, a clip CNN-RNN's
+``model.backbone.*``; none of a two-stream net's, as in the JAX rule) gets
+no update, no weight decay and no trace (optax's ``multi_transform`` with
+``set_to_zero``), while its BN still runs in train mode and moves its
+running statistics, as the JAX step does.
 """
 from __future__ import annotations
 
@@ -89,7 +91,8 @@ class TrainState:
     """The trained model, its optimizer (``SGD`` for the classifier,
     ``ClippedOptimizer`` for the captioner) and its state, and the step
     count. ``trained`` names the parameters the optimizer updates: all of
-    them, or under ``freeze_backbone`` all but the backbone's."""
+    them, or under ``freeze_backbone`` those with no ``backbone`` component
+    in their name (the JAX driver's path rule)."""
     model: torch.nn.Module
     tx: object
     opt_state: object
@@ -99,7 +102,8 @@ class TrainState:
     @property
     def trained(self) -> dict:
         return {n: p for n, p in self.model.named_parameters()
-                if not (self.freeze_backbone and n.startswith("backbone."))}
+                if not (self.freeze_backbone
+                        and "backbone" in n.split("."))}
 
 
 def create_train_state(model: torch.nn.Module, tx: SGD,

@@ -5,19 +5,25 @@ with argparse (absl booleans take ``--name``, ``--name=false`` and
 ``--noname``), plus ``--device`` (``cuda`` by default; asking for it without
 a GPU raises). Three invocations run:
 
-- training (the default) of a framewise DenseNet classifier
-  (:func:`fit`): the balanced train split through the random train
-  geometry (``ThreadLocalRng(seed + 1)``), a shuffled ``drop_last`` loader
-  and the pinned prefetch, the device augment (drawn per step from
-  ``(seed + 123, step)``), the train-mode forward and backward in the
-  compute dtype with f32 parameters, momentum SGD with weight decay and the
-  epoch step schedule (``--freeze_backbone``: the head only); after each
-  epoch the val split through the eval step (on a GPU every dense layer in
-  a dense-layer CUDA kernel), then the epoch file (the JAX ``TrainState``
-  layout, written atomically by a background writer) and its
-  ``scores.txt`` row. A rerun resumes the newest readable epoch (an
-  unreadable one is renamed ``.corrupt``), from either package. Training
-  ends with the best epoch reloaded and the test split scored;
+- training (the default, :func:`fit`) of the model the flags compose
+  (:func:`build_model`): a framewise DenseNet classifier; the CNN-RNN
+  (``--window > 1 --temp_pool gru|lstm``) over ``--feats_model`` features
+  or over frame clips; the two-stream RGB + flow net (``--flow twos``, or
+  ``only``); the 6-channel DenseNet (``--flow sixc``). The balanced train
+  split (windows too) through the random train geometry
+  (``ThreadLocalRng(seed + 1)``; the test geometry for clips and flow), a
+  shuffled ``drop_last`` loader and the pinned prefetch, the device augment
+  of single RGB frames (drawn per step from ``(seed + 123, step)``;
+  ``device_prepare`` for clips and 6-channel frames, features as they
+  are), the train-mode forward and backward in the compute dtype with f32
+  parameters, momentum SGD with weight decay and the epoch step schedule
+  (``--freeze_backbone``: every parameter under a ``backbone`` left as
+  it is); after each epoch the val split through the eval step (on a GPU
+  every dense layer in a dense-layer CUDA kernel), then the epoch file
+  (the JAX ``TrainState`` layout, written atomically by a background
+  writer) and its ``scores.txt`` row. A rerun resumes the newest readable
+  epoch (an unreadable one is renamed ``.corrupt``), from either package.
+  Training ends with the best epoch reloaded and the test split scored;
 - ``--save_feats``: dump the backbone features of every sample of the
   train, val and test splits (the train split with its 255-frame context
   extension, no balancing and the test geometry) as f32 ``(F,)`` ``.npy``
@@ -32,11 +38,15 @@ a GPU raises). Three invocations run:
 
 On a GPU every DenseNet dense layer of an evaluation runs in a dense-layer
 CUDA kernel; the train step runs plain torch ops, as the JAX package trains
-through its flax module. Every option that only an unported model family
+through its flax module (the CNN-RNN's GRU too: the GRU kernel is the
+captioner's decode's). Every option that only an unported model family
 uses raises ``NotImplementedError`` naming its ``ROADMAP.md`` slice.
 
 Run: ``python -m tennis_torch.train --model_id 0006 --backbone DenseNet121``
-(add ``--save_feats`` for the dump; ``--device cpu`` off the GPU).
+(add ``--save_feats`` for the dump; ``--device cpu`` off the GPU); ``--model_id
+0042 --backbone DenseNet121 --feats_model 0006 --temp_pool gru --window 30``
+for the CNN-RNN; ``--model_id 0010 --backbone DenseNet121 --flow twos`` for
+the two-stream net.
 """
 from __future__ import annotations
 
@@ -108,7 +118,8 @@ def add_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     _add_bool(p, "vis", "Visualise test results")
     _add_bool(p, "save_feats", "Save backbone features as .npy")
     add("--feats_model", default=None, help="Load features from this model id")
-    add("--flow", default="", help="'' | 'only' | 'sixc' | 'twos'")
+    add("--flow", default="", choices=["", "only", "sixc", "twos"],
+        help="'' | 'only' | 'sixc' | 'twos'")
     add("--temp_pool", default=None, help="mean, max, gru or lstm")
     add("--max_batches", type=int, default=-1,
         help="Limit batches per epoch (debug)")
@@ -147,15 +158,9 @@ def refuse_unported(args: argparse.Namespace):
     if args.pretrained_npz:
         raise NotImplementedError("--pretrained_npz needs the weight converter, "
                                   "not ported yet (ROADMAP.md slice 10)")
-    if args.flow:
-        raise NotImplementedError("--flow (TwoStream, 6-channel input) is not "
-                                  "ported yet (ROADMAP.md slice 7)")
     if args.backbone.lower() == "rdnet":
         raise NotImplementedError("rdnet (R(2+1)D) is not ported yet "
                                   "(ROADMAP.md slice 7)")
-    if args.temp_pool in ("gru", "lstm"):
-        raise NotImplementedError("--temp_pool gru|lstm (CNNRNN) is not "
-                                  "ported yet (ROADMAP.md slice 7)")
     if args.vis:
         raise NotImplementedError("--vis is not ported yet (ROADMAP.md "
                                   "slice 4)")
@@ -163,15 +168,30 @@ def refuse_unported(args: argparse.Namespace):
 
 def refuse_untrainable(args: argparse.Namespace):
     """Raise ``NotImplementedError`` for a training run the port does not
-    have: only framewise DenseNet classifiers train."""
+    have: only DenseNet backbones (their feature width for ``--feats_model``
+    runs), and clips only through the CNN-RNN."""
     if not args.backbone.lower().replace("-", "").startswith("densenet"):
         raise NotImplementedError(
             f"training is not ported for backbone {args.backbone!r}: only "
             f"DenseNet121/161/169/201 (ROADMAP.md slice 7)")
-    if args.window > 1 and not args.feats_model:
-        raise NotImplementedError("training over clips (--window > 1) needs "
-                                  "the temporal models, not ported yet "
-                                  "(ROADMAP.md slice 7)")
+    if args.window > 1 and not args.feats_model \
+            and args.temp_pool not in ("gru", "lstm"):
+        raise NotImplementedError("training over clips (--window > 1) "
+                                  "without --temp_pool gru|lstm (the rdnet "
+                                  "family) is not ported yet (ROADMAP.md "
+                                  "slice 7)")
+
+
+def refuse_feature_dump(model):
+    """``--save_feats`` dumps a ``FrameModel``'s backbone features; any
+    other model (a CNN-RNN, a two-stream net) raises ``ValueError``, as in
+    the JAX driver."""
+    from tennis_torch.models import FrameModel
+
+    if not isinstance(model, FrameModel):
+        raise ValueError("--save_feats needs a backbone-bearing model "
+                         "(FrameModel); it cannot be combined with "
+                         "--temp_pool/--feats_model configurations")
 
 
 def make_datasets(args):
@@ -235,19 +255,55 @@ def _geometry_transform(args, train: bool):
 
 
 def build_model(args, num_classes: int, feats: bool = False):
-    """``FrameModel(backbone, num_classes)`` drawn from ``--seed`` (CPU,
-    f32 parameters), with ``--remat``. Feature input needs a temporal
-    model."""
-    from tennis_torch.inference import build_frame_model
+    """The model the flags compose, as the JAX driver's ``build_model``
+    does, drawn from ``--seed`` (CPU, f32 parameters, bf16 compute), every
+    DenseNet with ``--remat``:
 
-    if feats:
-        raise ValueError("--feats_model requires --temp_pool (gru/lstm/max/mean)")
+    - ``--temp_pool max|mean``: the framewise donor ``FrameModel`` that the
+      pooled wrap loads (it trains nothing);
+    - frames with ``--flow twos|only``: ``TwoStreamModel`` of two DenseNet
+      streams (``only``: the flow stream alone);
+    - ``--window > 1 --temp_pool gru|lstm``: ``CNNRNN`` (hidden 128) over
+      ``feats`` (the backbone's feature width) or over clips through a
+      head-less ``FrameModel``;
+    - otherwise ``FrameModel(backbone, num_classes)``.
+
+    ``--flow sixc`` makes every backbone above take 6 channels. Feature
+    input needs a temporal model."""
+    from tennis_torch.inference import build_frame_model
+    from tennis_torch.models import CNNRNN, FrameModel, TwoStreamModel, \
+        backbone_feature_dim, get_backbone
+
     remat = None if args.remat == "none" else args.remat
     if remat and not args.backbone.lower().startswith("densenet"):
         raise ValueError("--remat supports DenseNet backbones only")
-    return build_frame_model(args.backbone, num_classes, args.data_shape,
-                             remat=remat,
-                             generator=torch.Generator().manual_seed(args.seed))
+    generator = torch.Generator().manual_seed(args.seed)
+    channels = 6 if args.flow else 3
+
+    def backbone(in_channels=channels):
+        return get_backbone(args.backbone, in_channels=in_channels,
+                            remat=remat, generator=generator)
+
+    def frame_model():
+        return build_frame_model(args.backbone, num_classes, args.data_shape,
+                                 remat=remat, generator=generator,
+                                 in_channels=channels)
+
+    if args.temp_pool in ("max", "mean") and not feats:
+        return frame_model()
+    feature_dim = backbone_feature_dim(args.backbone, args.data_shape)
+    if not feats and args.flow in ("twos", "only"):
+        rgb = None if args.flow == "only" else backbone(3)
+        return TwoStreamModel(rgb, backbone(3), num_classes,
+                              feature_dim=feature_dim, generator=generator)
+    if args.window > 1 and args.temp_pool in ("gru", "lstm"):
+        return CNNRNN(None if feats else FrameModel(backbone()), num_classes,
+                      hidden_size=128, cell_type=args.temp_pool,
+                      feature_dim=feature_dim, generator=generator)
+    if feats:
+        raise ValueError("--feats_model requires --temp_pool "
+                         "(gru/lstm/max/mean)")
+    return frame_model()
 
 
 def _metric_set(class_names):
@@ -283,10 +339,25 @@ def load_epoch(model, exp_dir: str, epoch: int):
     load_tree(model, ckpt.load_raw(path), path)
 
 
+def _key_paths(tree: dict, prefix=()) -> set:
+    out = set()
+    for k, v in tree.items():
+        if isinstance(v, dict) and v:
+            out |= _key_paths(v, prefix + (k,))
+        else:
+            out.add("/".join(prefix + (k,)))
+    return out
+
+
 def _load_backbone_from(model, from_id: str):
-    """Transplant the backbone parameters (not its BN statistics, as in the
-    JAX driver) of ``from_id``'s newest epoch."""
-    from tennis_torch.bridge import from_flax
+    """Transplant the ``backbone`` parameters (not its BN statistics, as in
+    the JAX driver) of ``from_id``'s newest epoch. The JAX driver restores
+    the donor's whole file into this model's train state first, so a donor
+    of another architecture raises there (flax's ``from_bytes``), and a
+    model without a top-level ``backbone`` (a CNN-RNN, a two-stream net)
+    raises on the transplant: here both raise ``ValueError`` naming the
+    mismatch."""
+    from tennis_torch.bridge import from_flax, to_flax
     from tennis_torch.utils import checkpoint as ckpt
     from tennis_torch.utils.experiments import experiment_dir
 
@@ -296,12 +367,24 @@ def _load_backbone_from(model, from_id: str):
         log.warning("no checkpoints in %s; backbone not transplanted", src_dir)
         return
     log.info("transplanting backbone from %s epoch %d", from_id, latest)
-    raw = ckpt.load_raw(ckpt.epoch_path(src_dir, latest))
-    state = from_flax({"params": {"backbone": raw["params"]["backbone"]}})
-    want = {n for n, _ in model.named_parameters() if n.startswith("backbone.")}
-    if set(state) != want:
-        raise ValueError(f"backbone of {from_id} does not match the model")
-    model.load_state_dict(state, strict=False)
+    path = ckpt.epoch_path(src_dir, latest)
+    raw = ckpt.load_raw(path)
+    mine = to_flax(model)
+    for col in ("params", "batch_stats"):
+        want, got = _key_paths(mine[col]), _key_paths(raw.get(col, {}))
+        if want != got:
+            raise ValueError(
+                f"--backbone_from_id {from_id}: {path} is another "
+                f"architecture ({col} keys differ: the model's "
+                f"{sorted(want - got)[:3]}, the file's "
+                f"{sorted(got - want)[:3]})")
+    if "backbone" not in mine["params"]:
+        raise ValueError(f"--backbone_from_id {from_id}: the model has no "
+                         f"'backbone' to transplant (params "
+                         f"{sorted(mine['params'])})")
+    model.load_state_dict(
+        from_flax({"params": {"backbone": raw["params"]["backbone"]}}),
+        strict=False)
 
 
 def _to_host(feats: torch.Tensor):
@@ -438,16 +521,36 @@ def _profile_train_steps(step, n: int, out_dir: str, device):
     prof.export_chrome_trace(os.path.join(out_dir, "train_steps.json"))
 
 
-def fit(args, model, loaders: dict, exp_dir: str, device):
-    """Train ``model`` (a ``FrameModel``) over ``loaders["train"]`` from the
-    newest readable epoch of ``exp_dir`` to ``--epochs``, evaluate
-    ``loaders["val"]`` after every epoch and ``loaders["test"]`` with the
-    best epoch; returns ``(train state, test metric set)``.
+def make_preprocess(args, dtype):
+    """The train step's ``preprocess(images, generator)``, the JAX step's:
+    the device augment of uint8 single frames without ``--flow``,
+    ``device_prepare`` of any other uint8 input (clips flattened, 6-channel
+    frames with the two-stream statistics), features as they are."""
+    from tennis_torch.data.transforms import device_augment
+    from tennis_torch.inference import prepare_input
 
-    The loaders yield ``(uint8 images, labels, indices)``; the train
+    def preprocess(images, generator):
+        if images.dtype == torch.uint8 and images.ndim == 4 and not args.flow:
+            return device_augment(images, generator, dtype)
+        return prepare_input(images, dtype)
+
+    return preprocess
+
+
+def fit(args, model, loaders: dict, exp_dir: str, device):
+    """Train ``model`` (a ``FrameModel``, ``CNNRNN`` or ``TwoStreamModel``)
+    over ``loaders["train"]`` from the newest readable epoch of ``exp_dir``
+    to ``--epochs``, evaluate ``loaders["val"]`` after every epoch and
+    ``loaders["test"]`` with the best epoch; returns ``(train state, test
+    metric set)``.
+
+    The loaders yield ``(inputs, labels, indices)``: uint8 frames (B, S,
+    S, C) or clips (B, T, S, S, C), or f32 features (B, T, F); the train
     loader's dataset names the classes (``.classes``) and the loader takes
-    ``set_epoch``. Each epoch: the train batches through the pinned
-    prefetch and the train step (the loss and a train PRF1 sampled at
+    ``set_epoch``. The step's preprocess is :func:`make_preprocess`'s.
+    Each epoch: the train
+    batches through the pinned prefetch and the train step (the loss and a
+    train PRF1 sampled at
     ``--log_interval``; ``--max_batches`` ends the epoch early;
     ``--profile_steps`` traces that many steps at the second batch of the
     first epoch into ``<exp_dir>/tb/profile``), then the val split through
@@ -456,7 +559,6 @@ def fit(args, model, loaders: dict, exp_dir: str, device):
     ``scores.txt`` row only after it."""
     from tennis_torch.bridge import state_from_flax, state_to_flax
     from tennis_torch.data.loader import eval_iter, prefetch_to_device
-    from tennis_torch.data.transforms import device_augment
     from tennis_torch.inference import make_eval_step
     from tennis_torch.parallel.train_step import create_train_state, \
         make_train_step, sgd_with_schedule
@@ -476,10 +578,8 @@ def fit(args, model, loaders: dict, exp_dir: str, device):
     if start_epoch > 0:
         log.info("resumed from epoch %d", start_epoch - 1)
 
-    def augment(images, generator):
-        return device_augment(images, generator, model.dtype)
-
-    train_step = make_train_step(state, augment, rng_seed=args.seed + 123)
+    train_step = make_train_step(state, make_preprocess(args, model.dtype),
+                                 rng_seed=args.seed + 123)
 
     def run_eval(split):
         step = make_eval_step(model, device)  # folds this epoch's weights
@@ -609,6 +709,8 @@ def train_and_evaluate(args: argparse.Namespace):
     for ds in datasets:
         log.info(ds)
     model = build_model(args, datasets[0].num_class, feats)
+    if args.save_feats:
+        refuse_feature_dump(model)
     if args.backbone_from_id:
         _load_backbone_from(model, args.backbone_from_id)
     if training:

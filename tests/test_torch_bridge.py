@@ -100,3 +100,94 @@ def test_unmatched_key_raises(densenet121_tree, mutate):
     model = build_frame_model("DenseNet121", 11, 32, dtype=torch.float32)
     with pytest.raises((KeyError, RuntimeError)):
         load_flax(model, tree)
+
+
+def _key_shapes(tree, prefix=""):
+    """Path -> shape of every leaf; an empty dict (optax's masked node, an
+    absent collection) is a leaf of its own."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict) and v:
+            out.update(_key_shapes(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = "{}" if isinstance(v, dict) else \
+                tuple(np.shape(v))
+    return out
+
+
+TEMPORAL = {
+    "cnnrnn_feats_gru": ["--feats_model=fs", "--temp_pool=gru",
+                         "--window=4"],
+    "cnnrnn_feats_lstm": ["--feats_model=fs", "--temp_pool=lstm",
+                          "--window=4"],
+    "cnnrnn_clips": ["--temp_pool=gru", "--window=3"],
+    "cnnrnn_clips_frozen": ["--temp_pool=gru", "--window=3",
+                            "--freeze_backbone"],
+    "twos": ["--flow=twos"],
+    "only": ["--flow=only", "--freeze_backbone"],
+    "sixc": ["--flow=sixc"],
+}
+
+
+@pytest.mark.parametrize("config", list(TEMPORAL))
+def test_temporal_and_two_stream_states_round_trip(config):
+    """The JAX driver's ``build_model`` and ``TrainState`` (through its
+    flags) against the port's ``train.build_model`` and
+    ``state_to_flax``: the same tree, key for key and shape for shape (the
+    feature CNN-RNN's ``batch_stats`` empty; under ``--freeze_backbone``
+    the masked momentum leaves of every ``backbone``, none of a two-stream
+    net); then seeded values of the JAX layout, momentum included, go into
+    the port's state and come back out bit for bit."""
+    import optax
+    from absl import flags
+    from flax import serialization
+
+    from tennis_tpu import train as jax_train
+    from tennis_tpu.parallel import create_train_state as jax_state
+    from tennis_tpu.parallel import sgd_with_schedule as jax_sgd
+    from tennis_torch import train
+    from tennis_torch.bridge import state_from_flax, state_to_flax
+    from tennis_torch.parallel.train_step import create_train_state, \
+        sgd_with_schedule
+
+    argv = ["--backbone=DenseNet121", "--data_shape=32", *TEMPORAL[config]]
+    feats = config.startswith("cnnrnn_feats")
+    flags.FLAGS.unparse_flags()
+    flags.FLAGS(["train", *argv])
+    try:
+        jax_model = jax_train.build_model(11, feats)
+        sample = jax_train._sample_shape(11, feats, 1024)
+        tx, _ = jax_sgd(0.001, 0.9, 1e-4, [10, 20], 0.75, 5)
+        if flags.FLAGS.freeze_backbone:
+            tx = optax.multi_transform(
+                {"train": tx, "frozen": optax.set_to_zero()},
+                lambda params: jax.tree_util.tree_map_with_path(
+                    lambda path, _: "frozen" if any(
+                        getattr(k, "key", None) == "backbone" for k in path)
+                    else "train", params))
+        abstract = jax.eval_shape(lambda: jax_state(
+            jax_model, jax.random.PRNGKey(0), jnp.zeros(sample, jnp.float32),
+            tx, {"train": True}))
+    finally:
+        flags.FLAGS.unparse_flags()
+    want = serialization.to_state_dict(abstract)
+
+    args = train.parse_args(argv)
+    model = train.build_model(args, 11, feats)
+    tx, _ = sgd_with_schedule(0.001, 0.9, 1e-4, [10, 20], 0.75, 5)
+    state = create_train_state(model, tx, args.freeze_backbone)
+    shapes = _key_shapes(want)
+    assert _key_shapes(state_to_flax(state)) == shapes
+    assert (want["batch_stats"] == {}) == feats
+
+    rng = np.random.default_rng(1)
+    tree = jax.tree_util.tree_map(
+        lambda a: np.asarray(
+            rng.integers(1, 100) if a.dtype == jnp.int32
+            else rng.standard_normal(a.shape), a.dtype), want)
+    state_from_flax(state, tree)
+    back = _flat(state_to_flax(state))
+    flat = _flat(tree)
+    assert set(back) == set(flat)
+    for key, value in flat.items():
+        np.testing.assert_array_equal(back[key], value, err_msg=key)

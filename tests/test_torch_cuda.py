@@ -742,3 +742,76 @@ def test_captioner_decode_context_takes_the_kernel(dev):
     with pytest.raises(RuntimeError, match="forward-only"), gru_decode():
         model.encode(src, src_vl)
     assert gru.gru_recurrence.launches == launches + 6
+
+
+# ------------------------------------------- temporal and two-stream models
+
+
+def _temporal_model(flow=None, clips=False, seed=0):
+    """A small model of the new families: two-stream (``twos``/``only``),
+    sixc, or a CNN-RNN over clips (DenseNet121 streams) or features."""
+    from tennis_torch.models import CNNRNN, FrameModel, TwoStreamModel, \
+        get_backbone
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def net(c=3):
+        return get_backbone("DenseNet121", in_channels=c, generator=gen)
+
+    if flow in ("twos", "only"):
+        return TwoStreamModel(None if flow == "only" else net(), net(), 11,
+                              feature_dim=1024, generator=gen)
+    if flow == "sixc":
+        return FrameModel(net(6), 11, feature_dim=1024, generator=gen)
+    base = FrameModel(net()) if clips else None
+    return CNNRNN(base, 11, feature_dim=1024, generator=gen)
+
+
+@pytest.mark.parametrize("flow,clips,shape,launches", [
+    ("twos", False, (2, 64, 64, 6), 116),
+    ("only", False, (2, 64, 64, 6), 58),
+    ("sixc", False, (2, 64, 64, 6), 58),
+    (None, True, (1, 3, 64, 64, 3), 58)])
+def test_temporal_and_two_stream_eval_through_the_kernels(dev, flow, clips,
+                                                          shape, launches):
+    """One evaluation forward of each new model through ``make_eval_step``
+    on the card: every dense layer of every stream in a routed kernel (the
+    clip CNN-RNN's B*T frames in one forward), no GRU kernel, the logits
+    within 5e-2 of the plain-version forward on the same card."""
+    from tennis_torch.inference import make_eval_step, prepare_input
+    from tennis_torch.ops import gru
+
+    model = _temporal_model(flow, clips)
+    step = make_eval_step(model, dev)
+    x = torch.randint(0, 256, shape, dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(1)).to(dev)
+    before = dict(db.dense_layer.variant_launches)
+    gru_before = gru.gru_recurrence.launches
+    got = step(x)
+    torch.cuda.synchronize()
+    by_route = {v: n - before[v] for v, n in
+                db.dense_layer.variant_launches.items()}
+    assert sum(by_route[v] for v in db.VARIANTS) == launches, by_route
+    assert by_route["convs"] == 0
+    assert gru.gru_recurrence.launches == gru_before
+    with torch.inference_mode(), db.plain_dense_layers(model):
+        want = model(prepare_input(x, model.dtype))
+    assert db.dense_layer.variant_launches == {
+        v: before[v] + by_route[v] for v in db.ROUTES}
+    err = (got - want).abs().max() / want.abs().max()
+    assert got.shape == (shape[0], 11) and err <= 5e-2, err.item()
+
+
+def test_feature_cnnrnn_eval_on_the_card_matches_the_cpu(dev):
+    """The features CNN-RNN (bf16 bi-GRU, no kernel of its own): the
+    card's logits within 2e-2 of max |logit| of the CPU's, no dense and no
+    GRU kernel launched."""
+    from tennis_torch.inference import make_eval_step
+    from tennis_torch.ops import gru
+
+    x = torch.randn(4, 30, 1024, generator=torch.Generator().manual_seed(2))
+    want = make_eval_step(_temporal_model(), torch.device("cpu"))(x)
+    launches = (db.dense_layer.launches, gru.gru_recurrence.launches)
+    got = make_eval_step(_temporal_model(), dev)(x).cpu()
+    assert (db.dense_layer.launches, gru.gru_recurrence.launches) == launches
+    assert (got - want).abs().max() <= 2e-2 * want.abs().max()

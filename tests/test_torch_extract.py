@@ -261,11 +261,11 @@ def test_flags_equal_the_jax_drivers():
 @pytest.mark.parametrize("argv,match", [
     ([], "training is not ported"),
     (["--vis", "--save_feats"], "--vis"),
-    (["--save_feats", "--flow=twos"], "--flow"),
+    (["--flow=twos"], "training is not ported for backbone"),
     (["--save_feats", "--multihost"], "multi-device"),
     (["--save_feats", "--num_devices=2"], "multi-device"),
     (["--save_feats", "--pretrained_npz=w.npz"], "pretrained_npz"),
-    (["--temp_pool=gru", "--window=4"], "CNNRNN"),
+    (["--temp_pool=gru", "--window=4", "--backbone=rdnet"], "rdnet"),
     (["--save_feats", "--backbone=rdnet"], "rdnet"),
 ])
 def test_train_refuses_what_is_not_ported(argv, match, tmp_path, monkeypatch):
