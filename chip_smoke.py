@@ -147,6 +147,33 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    the backbone's parameters unchanged bit for bit while its BN statistics
    move; an evaluation forward of 58 dense launches at batch 60 against
    the plain version. Each prints its wall time;
+7c. ResNet-v2 and R(2+1)D (last), with seeded random weights in flax
+   naming: no dense-layer or GRU kernel is on these paths (the JAX package
+   runs them through XLA convolutions; here cuDNN's), and every part gates
+   that none was launched. ``[resnet_train]``: the drivers' default
+   ``FrameModel(resnet18_v2, 11)`` at 512^2, batch 64, over the train
+   phase's frames through the driver's step (device augment, bf16, SGD): 3
+   warm-up and 20 timed steps (samples/s, idle share, launches, the largest
+   kernels, peak memory, model FLOPs counted by ``FlopCounterMode`` and
+   ``mfu``), then ``resnet50_v2`` for 3 steps; gates: finite losses, 30
+   steps on one batch lower the loss, the first bf16 step against f32 and
+   f64 at batch 16. ``[resnet_driver]``: ``train.fit`` (2 epochs of 3 batches), a
+   copy of epoch 0 resumed, ``evaluate --metrics_out`` (the epoch files
+   read back bit for bit, the resumed epoch within 2e-2 of the
+   uninterrupted one, the evaluation's PRF1 the final test's);
+   ``save_features`` (512-d); 16 frames through ``make_service`` at batch 8
+   (batch-8 logits against the same model in f32 on the CPU); two-stream,
+   ``only`` and ``sixc`` 3 steps each; the CNN-RNN over the dumped
+   features 3 steps. ``[r21d_train]``: 0031 at 8 x 224^2, batch 64 with
+   ``--remat block`` and 32 without, 3 warm-up and 10 timed steps each
+   (clips/s, the same fields), window 32 at batch 16 for 3; gates: finite
+   losses, 30 steps on one batch of 8 lower the loss, ``init_bn``'s
+   statistics bit for bit unchanged and every other BN's moved, the first
+   bf16 step against f32 and f64 at batch 4 (its update logged by stage),
+   the stem and three blocks in bf16 against f32 one at a time at that
+   batch, remat block's first-step loss and gradients those of remat none. ``[r21d_driver]``: ``train.fit`` at
+   batch 8 over in-memory clip splits (32 train, 21 val and test), a resume
+   and ``evaluate``, with ``[resnet_driver]``'s gates;
 8. ``{"kernels": [...]}``, then the card line, then ``{"ok": true, ...}``.
 
 Any failure exits nonzero before the last line. Without a GPU, or without
@@ -272,6 +299,39 @@ CLIP_BATCH, CLIP_TIMED = 2, 5
 # the two-stream net (0010, --flow twos; the JAX package's figure at
 # --remat block) over seeded 6-channel frames; --flow only and sixc briefly
 TWO_STREAM_FRAMES, TWO_STREAM_TIMED, OTHER_FLOW_STEPS = 256, 10, 3
+# ResNet-v2: the drivers' default backbone (resnet18_v2) at 512^2 over the
+# train phase's frames and batch, resnet50_v2 briefly. R(2+1)D: the 0031
+# row (--backbone rdnet --window 8 --data_shape 224) over R21D_POOL seeded
+# clips on the device, batch 64 with --remat block and 32 without (batch 64
+# keeps ~55 GiB of bf16 activations for the backward without remat), window
+# 32 briefly; the f32 and remat comparisons at R21D_SMALL clips, remat's
+# in f32 (TF32 off): relative loss, global relative L2 of the gradients
+# (cuDNN's backward sums in a varying order); the driver at batch 8 over
+# in-memory clip splits
+RESNET_ARGV = [f"--data_shape={DATA_SHAPE}"]
+RESNET50_STEPS = 3
+R21D_SHAPE, R21D_WINDOW, R21D_POOL = 224, 8, 64
+R21D_ARGV = ["--backbone=rdnet", f"--window={R21D_WINDOW}",
+             f"--data_shape={R21D_SHAPE}"]
+R21D_BATCH_REMAT, R21D_BATCH_NONE, R21D_W32_BATCH, R21D_TIMED = 64, 32, 16, 10
+R21D_SMALL, R21D_OVERFIT_BATCH = 4, 8
+R21D_REMAT_LOSS_TOL, R21D_REMAT_GRAD_TOL = 1e-5, 1e-3
+# the first step's f32 update against the same step in f64 (global relative
+# L2 of cuDNN's f32 sums; R(2+1)D 0.057-0.061 at random weights). ResNet-18's
+# bf16 update is held against f32 at RESNET_UPDATE_TOL. R(2+1)D's whole bf16
+# step is chaotic at random weights in the JAX package too (its train-mode
+# forward grows a perturbation ~1.5x a residual block, and every leaf's bf16
+# gradient lies ~1.4 off f64; tests/test_torch_r21d.py): its update is logged
+# by stage, and its bf16 arithmetic is held piece by piece at the card's
+# shapes (stem, stage 1's, 2's and 4's first blocks, each against f32 over
+# the same input): output within R21D_PIECE_OUT_TOL of max |f32 output|,
+# statistics within TRAIN_STATS_TOL, every gradient leaf (parameters and
+# input) within R21D_PIECE_GRAD_TOL relative L2 of f32
+F64_UPDATE_TOL, RESNET_UPDATE_TOL = 0.2, 0.5
+R21D_PIECE_OUT_TOL, R21D_PIECE_GRAD_TOL = 2e-2, 0.25
+R21D_PIECES = ("stem", "stage1_block1", "stage2_block1", "stage4_block1")
+R21D_DRIVER_FRAMES, R21D_DRIVER_TRAIN, R21D_DRIVER_EVAL = 64, 32, 21
+R21D_DRIVER_BATCH = 8
 
 # (name, T, batch, H, valid lengths): the 0102 serving shape, the lengths of
 # the measured /caption batch (all end before T), --num_hidden 512, the
@@ -2806,6 +2866,663 @@ def densenet161_phase(dev):
     return by_variant
 
 
+def step_flops(model, x, labels):
+    """(forward FLOPs of one sample, FLOPs of one train step) of ``model``
+    over the prepared batch ``x``, counted by ``FlopCounterMode`` from the
+    shapes of every convolution and matmul: the forward, the input and the
+    weight gradients, no rematerialization (an R(2+1)D's remat is off while
+    counting)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    remat = getattr(model.backbone, "remat", None)
+    if remat is not None:
+        model.backbone.remat = False
+    try:
+        with FlopCounterMode(display=False) as fwd:
+            with torch.no_grad():
+                model(x, train=True)
+        with FlopCounterMode(display=False) as both:
+            loss = F.cross_entropy(model(x, train=True).float(), labels)
+            torch.autograd.grad(loss, [p for p in model.parameters()])
+    finally:
+        if remat is not None:
+            model.backbone.remat = remat
+    return fwd.get_total_flops() / len(x), both.get_total_flops()
+
+
+def weights_of(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def rebuilt(argv, weights, dev, dtype=torch.bfloat16, steps_per_epoch=4):
+    """``train.build_model`` of ``argv`` (11 classes) computing in
+    ``dtype``, loaded with ``weights``, on ``dev``; its driver train state
+    and step."""
+    from tennis_torch import train as driver
+
+    args = driver.parse_args(argv)
+    model = driver.build_model(args, 11, dtype=dtype)
+    model.load_state_dict(weights)
+    model.to(dev)
+    if dtype == torch.float64:  # the parameters too
+        model.double()
+    return (model,) + sgd_state(model, args, steps_per_epoch)
+
+
+def stage_of(name):
+    """``backbone.stage3_block2.conv1.weight`` -> ``stage3``; the stem's
+    parameters -> ``stem``, the head's -> ``head``."""
+    parts = name.split(".")
+    if parts[0] != "backbone":
+        return "head"
+    return parts[1].split("_block")[0] if parts[1].startswith("stage") \
+        else "stem"
+
+
+def first_step_gap(argv, weights, dev, x, y):
+    """The first train step of ``argv``'s model in bf16 against the same
+    step in f32 (TF32 off): relative loss, worst running statistic over
+    max |f32 statistic|, global relative L2 of the update, and of each
+    stage's part of it (``stage_of``); and the bf16 and f32 updates' gaps
+    to the same step in f64."""
+    runs = {}
+    for dtype in (torch.bfloat16, torch.float32, torch.float64):
+        model, state, step = rebuilt(argv, weights, dev, dtype)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        loss, _ = step(x, y)
+        runs[dtype] = (loss.item(), {
+            n: (p.detach() - before[n]).double().flatten()
+            for n, p in model.named_parameters()},
+            [b.double() for b in model.buffers()])
+        del model, state, step, before
+    (loss_b, upd_b, stats_b), (loss_f, upd_f, stats_f), (_, upd_d, _) = \
+        runs.values()
+    stats_rel = max(((a - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip(stats_b, stats_f))
+
+    def rel(a, b, names=tuple(upd_f)):
+        a, b = (torch.cat([u[n] for n in names]) for u in (a, b))
+        return ((a - b).norm() / b.norm()).item()
+
+    stages = {}
+    for n in upd_f:
+        stages.setdefault(stage_of(n), []).append(n)
+    return {"loss_bf16": loss_b, "loss_f32": loss_f,
+            "loss_rel": abs(loss_b - loss_f) / abs(loss_f),
+            "running_stats_rel": stats_rel,
+            "update_rel_l2": rel(upd_b, upd_f),
+            "update_rel_l2_by_stage": {k: rel(upd_b, upd_f, v)
+                                       for k, v in stages.items()},
+            "update_rel_l2_bf16_to_f64": rel(upd_b, upd_d),
+            "update_rel_l2_f32_to_f64": rel(upd_f, upd_d)}
+
+
+def f32_gaps_ok(gap, update_tol=None):
+    """The gates of ``first_step_gap``: the bf16 update's against f32 only
+    where ``update_tol`` is given."""
+    return (gap["loss_rel"] <= TRAIN_LOSS_TOL
+            and gap["running_stats_rel"] <= TRAIN_STATS_TOL
+            and (update_tol is None or gap["update_rel_l2"] <= update_tol)
+            and gap["update_rel_l2_f32_to_f64"] <= F64_UPDATE_TOL)
+
+
+def r21d_piece_gaps(model, x):
+    """R(2+1)D's R21D_PIECES in bf16 against f32 (TF32 off) at the card's
+    shapes, one at a time: the stem (``init`` and the frozen ``init_bn``)
+    over the prepared clips ``x``, and each named block over what the f32
+    network (train mode, no statistics kept) feeds it. For each, the
+    loss ``sum(out * r)`` over a seeded f32 cotangent r: the output's
+    largest difference over max |f32 output|, the batch statistics' over
+    max |f32 statistic|, and every gradient leaf's (its parameters' and
+    its input's) relative L2 gap, with the worst leaf named."""
+    bb = model.backbone
+
+    def stem(h, dt, stats):
+        h = bb.init(h.to(dt), True, stats, dt)
+        return bb.init_bn.train_norm(h, stats, frozen=True)
+
+    def block(name):
+        def run(h, dt, stats):
+            out, s = getattr(bb, name)(h.to(dt), True, dt)
+            stats += s
+            return out
+        return run
+
+    inputs = {"stem": x}
+    with torch.no_grad():
+        h = stem(x, torch.float32, [])
+        for name in bb.blocks:
+            if name in R21D_PIECES:
+                inputs[name] = h
+            h = block(name)(h, torch.float32, [])
+    del h
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 27)
+    out = {}
+    for name in R21D_PIECES:
+        run = stem if name == "stem" else block(name)
+        params = dict(
+            [(f"init.{n}", p) for n, p in bb.init.named_parameters()]
+            + [(f"init_bn.{n}", p) for n, p in bb.init_bn.named_parameters()]
+            if name == "stem" else getattr(bb, name).named_parameters())
+        runs, r = [], None
+        for dt in (torch.bfloat16, torch.float32):
+            xin = inputs[name].detach().clone().requires_grad_()
+            stats = []
+            y = run(xin, dt, stats).float()
+            if r is None:
+                r = torch.randn(y.shape, device=y.device, generator=gen)
+            g = torch.autograd.grad((y * r).sum(),
+                                    list(params.values()) + [xin])
+            runs.append((y.detach(), dict(zip(list(params) + ["input"], g)),
+                         [t for _, m, v in stats for t in (m, v)]))
+            del xin, y, g
+        (yb, gb, sb), (yf, gf, sf) = runs
+        leaf = {n: ((gb[n].float() - gf[n].float()).norm()
+                    / gf[n].float().norm()).item() for n in gf}
+        worst = max(leaf, key=leaf.get)
+        out[name] = {
+            "out_rel": ((yb - yf).abs().max() / yf.abs().max()).item(),
+            "stats_rel": max(((a - b).abs().max() / b.abs().max()).item()
+                             for a, b in zip(sb, sf)),
+            "input_grad_rel_l2": leaf["input"],
+            "worst_leaf": worst, "worst_leaf_rel_l2": leaf[worst]}
+        del runs, yb, gb, yf, gf
+    torch.cuda.empty_cache()
+    return out
+
+
+def no_kernel_launched(by_name=None):
+    """No dense-layer or GRU kernel launch since the counts were set to 0
+    (nor in the profile ``by_name``)."""
+    dense, gru_n = kernel_counts()
+    return (sum(dense.values()) == 0 and gru_n == 0
+            and (by_name is None or kernel_launches_in(by_name) == 0))
+
+
+def resnet_train_phase(dev, frames):
+    """The drivers' default model, ``FrameModel(resnet18_v2, 11)``, at
+    512^2 and batch 64 over the 256 seeded frames, through the driver's
+    train step (device augment, bf16, SGD): 3 warm-up and 20 timed steps,
+    2 profiled; then ``resnet50_v2`` for RESNET50_STEPS steps. Gates: finite
+    losses, 30 steps on one batch lower the loss, the first bf16 step
+    against f32 at batch 16, no kernel launched."""
+    from tennis_torch.data.transforms import device_prepare
+
+    t_phase = time.perf_counter()
+    images = torch.from_numpy(frames).to(dev)
+    labels = torch.from_numpy(np.random.default_rng(SEED + 20).integers(
+        0, 11, len(frames))).to(dev)
+    n_batches = len(frames) // TRAIN_BATCH
+
+    def batch(i, size=TRAIN_BATCH):
+        lo = i % n_batches * size
+        return images[lo:lo + size], labels[lo:lo + size]
+
+    finite, clean, weights = True, True, None
+    for backbone, warmup, timed, profiled in (
+            ("resnet18_v2", TRAIN_WARMUP, TRAIN_TIMED, TRAIN_PROFILED),
+            ("resnet50_v2", 0, RESNET50_STEPS, 0)):
+        argv = RESNET_ARGV + [f"--backbone={backbone}"]
+        args, model = seeded_model(argv, SEED + 20)
+        if weights is None:
+            weights = weights_of(model)
+        model.to(dev)
+        x, y = batch(0, 2)
+        fwd, flops = step_flops(model, device_prepare(x, model.dtype), y)
+        flops *= TRAIN_BATCH / 2
+        state, step = sgd_state(model, args, n_batches)
+        reset_kernel_counts()
+        _, fields, by_name = time_steps(step, batch, warmup, timed, profiled)
+        clean = clean and no_kernel_launched(by_name)
+        finite = finite and fields["losses_finite"]
+        log("resnet_train", backbone=backbone, batch=TRAIN_BATCH,
+            data_shape=DATA_SHAPE, dtype="bfloat16",
+            samples_per_s=TRAIN_BATCH / fields["step_ms"] * 1e3,
+            model_gflop_per_image_forward=fwd / 1e9,
+            model_gflop_per_step=flops / 1e9,
+            mfu=flops / (fields["step_ms"] / 1e3) / PEAK_BF16_FLOPS, **fields)
+        del state, step, model
+        torch.cuda.empty_cache()
+
+    _, _, step = rebuilt(RESNET_ARGV, weights, dev)
+    overfit = [step(*batch(0))[0].item() for _ in range(OVERFIT_STEPS)]
+    lowered = statistics.mean(overfit[-5:]) < statistics.mean(overfit[:5])
+    del step
+    gap = first_step_gap(RESNET_ARGV, weights, dev, *batch(0, F32_BATCH))
+    ok = finite and lowered and f32_gaps_ok(gap, RESNET_UPDATE_TOL) and clean
+    log("resnet_train_check", losses_finite=finite, overfit_losses=overfit,
+        overfit_lowered=lowered, f32_batch=F32_BATCH, **gap,
+        loss_tol=TRAIN_LOSS_TOL, stats_tol=TRAIN_STATS_TOL,
+        update_tol=RESNET_UPDATE_TOL, f64_update_tol=F64_UPDATE_TOL,
+        no_kernel_launched=clean,
+        wall_s=time.perf_counter() - t_phase, ok=ok)
+    if not ok:
+        raise SystemExit("the ResNet-v2 train step failed its gates")
+
+
+def fit_resume_evaluate(dev, argv, splits, seed, batch):
+    """``train.fit`` of ``argv`` (2 epochs) over in-memory ``splits`` in a
+    temporary working directory, a copy of its epoch 0 resumed to 2 epochs,
+    then ``evaluate --metrics_out``. Returns the log fields and whether the
+    gates held: the epoch files and ``scores.txt`` read back bit for bit as
+    saved; the resumed epoch 1's parameters within RESUME_TOL of the
+    uninterrupted run's, relative to that epoch's own update; the
+    evaluation's PRF1 the trainer's final test's; no kernel launched."""
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    from tennis_torch import evaluate
+    from tennis_torch import train as driver
+    from tennis_torch.data.loader import DataLoader
+    from tennis_torch.utils import checkpoint as ckpt
+    from tennis_torch.utils import msgpack_codec
+    from tennis_torch.utils.experiments import experiment_dir
+
+    model_id = [a for a in argv if a.startswith("--model_id=")][0][11:]
+
+    def run_fit(exp_dir):
+        args, model = seeded_model(argv, seed)
+        loaders = {k: DataLoader(ds, batch, shuffle=k == "train",
+                                 seed=args.seed, num_workers=8,
+                                 drop_last=k == "train")
+                   for k, ds in splits.items()}
+        return driver.fit(args, model, loaders, exp_dir, dev)
+
+    saved, scored = [], []
+    save, append = ckpt.AsyncCheckpointer.save, ckpt.append_score
+
+    def recording_save(self, path, tree):
+        saved.append((path, tree))
+        return save(self, path, tree)
+
+    def recording_score(exp_dir, epoch, score):
+        scored.append((exp_dir, f"{epoch}\t{score}\n"))
+        return append(exp_dir, epoch, score)
+
+    cwd = os.getcwd()
+    try:
+        with tempfile.TemporaryDirectory() as work, \
+                mock.patch.object(ckpt.AsyncCheckpointer, "save",
+                                  recording_save), \
+                mock.patch.object(ckpt, "append_score", recording_score), \
+                mock.patch.object(driver, "make_eval_dataset",
+                                  lambda a, split, every_n=None:
+                                  splits[split]), \
+                mock.patch.object(driver, "_geometry_transform",
+                                  lambda a, train: None):
+            os.chdir(work)
+            exp = experiment_dir("vision", model_id)
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            _, test_metrics = run_fit(exp)
+            torch.cuda.synchronize()
+            wall_fit = time.perf_counter() - t0
+            files = sorted(f for f in os.listdir(exp) if f != "tb")
+            identical = len(saved) == 2 and all(
+                msgpack_codec.serialize(ckpt.load_raw(p))
+                == msgpack_codec.serialize(t) for p, t in saved)
+            with open(os.path.join(exp, "scores.txt")) as f:
+                identical = identical and f.read() == "".join(
+                    row for _, row in scored)
+            resumed_exp = experiment_dir("vision", model_id + "_resumed")
+            os.makedirs(resumed_exp, exist_ok=True)
+            shutil.copy(ckpt.epoch_path(exp, 0), resumed_exp)
+            with open(os.path.join(resumed_exp, "scores.txt"), "w") as f:
+                f.write(scored[0][1])
+            t0 = time.perf_counter()
+            run_fit(resumed_exp)
+            wall_resume = time.perf_counter() - t0
+            e0, e1, r1 = (driver_state_dict(ckpt.load_raw(ckpt.epoch_path(
+                d, e))) for d, e in ((exp, 0), (exp, 1), (resumed_exp, 1)))
+            num = sum(float(((r1[k] - e1[k]) ** 2).sum()) for k in e1)
+            den = sum(float(((e1[k] - e0[k]) ** 2).sum()) for k in e1)
+            resume_rel = (num / den) ** 0.5
+            metrics_path = os.path.join(work, "metrics.json")
+            t0 = time.perf_counter()
+            results, _, metrics = evaluate.evaluate_model(evaluate.parse_args(
+                argv + [f"--metrics_out={metrics_path}"]))
+            wall_eval = time.perf_counter() - t0
+            with open(metrics_path) as f:
+                dumped = json.load(f)
+            clean = no_kernel_launched()
+    finally:
+        os.chdir(cwd)
+    probs = np.stack(list(results.values()))
+    n_eval = len(splits["test"])
+    probs_ok = (probs.shape == (n_eval, 11) and bool(np.isfinite(probs).all())
+                and bool(np.allclose(probs.sum(-1), 1, atol=1e-3)))
+    same_as_fit = dumped == metrics["prf1"].get_dict() == \
+        test_metrics["prf1"].get_dict()
+    ok = (files == ["0000.params", "0001.params", "scores.txt"] and identical
+          and resume_rel <= RESUME_TOL and probs_ok and same_as_fit and clean)
+    return {"files": files, "saved_read_back_identical": identical,
+            "resume_epoch1_rel": resume_rel, "resume_tol": RESUME_TOL,
+            "evaluated": len(results), "probs_ok": probs_ok,
+            "metrics_equal_fit_test": same_as_fit,
+            "test_AVG_NB_f1": dumped.get("AVG_NB_f1"),
+            "no_kernel_launched": clean, "fit_wall_s": wall_fit,
+            "resume_wall_s": wall_resume, "evaluate_wall_s": wall_eval}, ok
+
+
+def resnet_serve(dev, weights):
+    """``make_service`` over ``FrameModel(resnet18_v2)``: N_REQUESTS
+    concurrent /predict frames at batch BATCH; the card's batch-8 logits
+    against the same model in f32 on the CPU."""
+    from tennis_torch.data.tennis_set import DEFAULT_CLASSES
+    from tennis_torch.inference import build_frame_model, make_eval_step, \
+        make_predict_probs, prepare_input
+    from tennis_torch.serve import make_service
+
+    classes = list(DEFAULT_CLASSES)
+    model = build_frame_model("resnet18_v2", len(classes), DATA_SHAPE)
+    model.load_state_dict(weights)
+    predict_probs = make_predict_probs(model, dev)
+    _, batcher = make_service(classes, predict_probs, BATCH, DATA_SHAPE,
+                              max_wait_ms=200)
+    frames = np.random.default_rng(SEED + 23).integers(
+        0, 256, (N_REQUESTS, DATA_SHAPE, DATA_SHAPE, 3), dtype=np.uint8)
+    results = [None] * N_REQUESTS
+
+    def request(i):
+        results[i] = batcher.submit(frames[i], timeout=300)
+
+    reset_kernel_counts()
+    batches0 = batcher.batches
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=request, args=(i,))
+               for i in range(N_REQUESTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    clean = no_kernel_launched()
+    answered = all(r is not None for r in results)
+    probs = np.stack(results) if answered else np.zeros(1)
+    got = make_eval_step(model, dev)(frames[:BATCH]).cpu()
+    cpu = build_frame_model("resnet18_v2", len(classes), DATA_SHAPE,
+                            dtype=torch.float32)
+    cpu.load_state_dict(weights)
+    with torch.inference_mode():
+        want = cpu(prepare_input(torch.from_numpy(frames[:BATCH]),
+                                 torch.float32))
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    top1 = bool((got.argmax(-1) == want.argmax(-1)).all())
+    served = answered and np.allclose(torch.softmax(got, -1).numpy(),
+                                      probs[:BATCH], atol=1e-2)
+    ok = (answered and bool(np.isfinite(probs).all()) and served
+          and rel <= LOGIT_TOL and top1 and clean)
+    return {"requests": N_REQUESTS, "batches": batcher.batches - batches0,
+            "wall_s": wall, "logits_rel_err_vs_cpu_f32": rel,
+            "logit_tol": LOGIT_TOL, "top1_agrees": top1,
+            "served_probs_match_forward": served,
+            "no_kernel_launched": clean}, ok
+
+
+def resnet_driver_phase(dev, frames):
+    """The drivers over ResNet-18 at 512^2: ``train.fit`` (2 epochs of
+    DRIVER_BATCHES steps), a resume and ``evaluate --metrics_out``;
+    ``save_features`` of the test split (512-d); ``/predict`` through
+    ``make_service``; two-stream, ``only`` and ``sixc`` for OTHER_FLOW_STEPS
+    steps each; the CNN-RNN over the dumped features for OTHER_FLOW_STEPS
+    steps."""
+    import tempfile
+
+    from tennis_torch import train as driver
+    from tennis_torch.data.loader import DataLoader
+    from tennis_torch.inference import make_extract_features
+
+    t_phase = time.perf_counter()
+    argv = RESNET_ARGV + [f"--batch_size={TRAIN_BATCH}", "--epochs=2",
+                          f"--max_batches={DRIVER_BATCHES}",
+                          "--log_interval=1", "--model_id=rn"]
+    splits = {"train": MemorySplit(frames, DRIVER_TRAIN, None, "train"),
+              "val": MemorySplit(frames[::-1], DRIVER_EVAL, None, "val"),
+              "test": MemorySplit(frames[1:], DRIVER_EVAL, None, "test")}
+    fields, ok = fit_resume_evaluate(dev, argv, splits, SEED + 21,
+                                     TRAIN_BATCH)
+    log("resnet_driver", part="fit", epochs=2, steps_per_epoch=DRIVER_BATCHES,
+        batch=TRAIN_BATCH, **fields, ok=ok)
+    all_ok = ok
+
+    _, model = seeded_model(RESNET_ARGV, SEED + 21)
+    weights = weights_of(model)
+    with tempfile.TemporaryDirectory() as feat_dir:
+        split = MemorySplit(frames, DRIVER_EVAL, feat_dir, "test")
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        report = driver.save_features(
+            make_extract_features(model, dev), [split],
+            {"test": DataLoader(split, TRAIN_BATCH, num_workers=8)}, dev)
+        wall = time.perf_counter() - t0
+        feats = np.stack([np.load(split.save_feature_path(i))
+                          for i in range(len(split))])
+        clean = no_kernel_launched()
+    ok = (report["test"]["files"] == DRIVER_EVAL and feats.shape ==
+          (DRIVER_EVAL, 512) and feats.dtype == np.float32
+          and bool(np.isfinite(feats).all()) and clean)
+    all_ok = all_ok and ok
+    log("resnet_driver", part="save_feats", files=report["test"]["files"],
+        feature_shape=list(feats.shape[1:]), wall_s=wall,
+        frames_per_s=DRIVER_EVAL / wall, no_kernel_launched=clean, ok=ok)
+    del model
+
+    fields, ok = resnet_serve(dev, weights)
+    all_ok = all_ok and ok
+    log("resnet_driver", part="serve", **fields, ok=ok)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    six = torch.randint(0, 256, (2 * TRAIN_BATCH, DATA_SHAPE, DATA_SHAPE, 6),
+                        dtype=torch.uint8, device=dev, generator=gen)
+    labels = torch.randint(0, 11, (2 * TRAIN_BATCH,), device=dev,
+                           generator=gen)
+
+    def six_batch(i):
+        lo = i % 2 * TRAIN_BATCH
+        return six[lo:lo + TRAIN_BATCH], labels[lo:lo + TRAIN_BATCH]
+
+    for flow in ("twos", "only", "sixc"):
+        args, model = seeded_model(RESNET_ARGV + [f"--flow={flow}"],
+                                   SEED + 24)
+        state, step = sgd_state(model.to(dev), args, 2)
+        reset_kernel_counts()
+        _, fields, _ = time_steps(step, six_batch, 0, OTHER_FLOW_STEPS, 0)
+        clean = no_kernel_launched()
+        ok = fields["losses_finite"] and clean
+        all_ok = all_ok and ok
+        log("resnet_driver", part="flow", flow=flow, batch=TRAIN_BATCH,
+            samples_per_s=TRAIN_BATCH / fields["step_ms"] * 1e3,
+            no_kernel_launched=clean, **fields, ok=ok)
+        del state, step, model
+    del six
+    torch.cuda.empty_cache()
+
+    # the CNN-RNN over the dumped 512-d features: windows of CNNRNN_WINDOW
+    pool = torch.from_numpy(feats).to(dev)
+    idx = (torch.arange(CNNRNN_BATCH * CNNRNN_WINDOW, device=dev) * 7) % len(
+        pool)
+    windows = pool[idx].reshape(CNNRNN_BATCH, CNNRNN_WINDOW, 512)
+    win_labels = torch.arange(CNNRNN_BATCH, device=dev) % 11
+    args, model = seeded_model(
+        RESNET_ARGV + ["--feats_model=rn", "--temp_pool=gru",
+                       f"--window={CNNRNN_WINDOW}"], SEED + 25, feats=True)
+    state, step = sgd_state(model.to(dev), args, 1)
+    reset_kernel_counts()
+    _, fields, _ = time_steps(step, lambda i: (windows, win_labels), 0,
+                              OTHER_FLOW_STEPS, 0)
+    clean = no_kernel_launched()
+    ok = fields["losses_finite"] and clean
+    all_ok = all_ok and ok
+    log("resnet_driver", part="cnnrnn_feats", feat_dim=512,
+        batch=CNNRNN_BATCH, window=CNNRNN_WINDOW, no_kernel_launched=clean,
+        **fields, ok=ok)
+    log("resnet_driver_check", wall_s=time.perf_counter() - t_phase,
+        ok=all_ok)
+    if not all_ok:
+        raise SystemExit("the ResNet-v2 drivers failed their gates")
+
+
+def r21d_train_phase(dev):
+    """0031, R(2+1)D-34 over 8 x 224^2 clips, 11 classes, through the
+    driver's train step (``device_prepare`` of the clips, bf16, SGD): batch
+    64 with ``--remat block`` and batch 32 without, 3 warm-up and
+    R21D_TIMED timed steps each (2 profiled); then ``--window 32`` at batch
+    16 with remat block for 3 steps. Gates: finite losses; 30 steps on one
+    batch lower the loss; ``init_bn``'s statistics unchanged bit for bit
+    and every other BN's moved; the first bf16 step against f32 and f64 at
+    batch R21D_SMALL (its bf16 update logged by stage, not gated: it is
+    chaotic at random weights); R21D_PIECES in bf16 against f32 at that
+    batch (``r21d_piece_gaps``); remat block's first-step loss and
+    gradients those of remat none (f32, TF32 off); no kernel launched."""
+    from tennis_torch.inference import prepare_input
+    from tennis_torch.parallel.train_step import softmax_ce
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    clips = torch.randint(0, 256, (R21D_POOL, R21D_WINDOW, R21D_SHAPE,
+                                   R21D_SHAPE, 3), dtype=torch.uint8,
+                          device=dev, generator=gen)
+    labels = torch.randint(0, 11, (R21D_POOL,), device=dev, generator=gen)
+
+    def batcher(size):
+        n = R21D_POOL // size
+
+        def batch(i):
+            lo = i % n * size
+            return clips[lo:lo + size], labels[lo:lo + size]
+        return batch
+
+    finite, clean, weights, stats_ok = True, True, None, True
+    runs = [("block", R21D_BATCH_REMAT, R21D_WINDOW, TRAIN_WARMUP,
+             R21D_TIMED, TRAIN_PROFILED),
+            ("none", R21D_BATCH_NONE, R21D_WINDOW, TRAIN_WARMUP, R21D_TIMED,
+             TRAIN_PROFILED),
+            ("block", R21D_W32_BATCH, 32, 0, OTHER_FLOW_STEPS, 0)]
+    for remat, size, window, warmup, timed, profiled in runs:
+        argv = [a for a in R21D_ARGV if not a.startswith("--window")] + [
+            f"--window={window}", f"--remat={remat}"]
+        args, model = seeded_model(argv, SEED + 26)
+        if weights is None:
+            weights = weights_of(model)
+        model.to(dev)
+        if window == R21D_WINDOW:
+            batch = batcher(size)
+        else:  # 32-frame clips from 4 consecutive pool clips
+            def batch(i, size=size):
+                idx = [(i * size + b) * 4 % R21D_POOL for b in range(size)]
+                x = torch.cat([clips[[(j + t) % R21D_POOL for t in range(4)]]
+                               .reshape(1, -1, *clips.shape[2:])
+                               for j in idx])
+                return x, labels[:size]
+        x, y = batch(0)
+        fwd, flops = step_flops(model, prepare_input(x[:2], model.dtype),
+                                y[:2])
+        flops *= size / 2
+        before = {k: v.clone() for k, v in model.named_buffers()}
+        state, step = sgd_state(model, args, 4)
+        reset_kernel_counts()
+        _, fields, by_name = time_steps(step, batch, warmup, timed,
+                                        profiled)
+        clean = clean and no_kernel_launched(by_name)
+        finite = finite and fields["losses_finite"]
+        after = dict(model.named_buffers())
+        frozen = [k for k in before if ".init_bn." in k]
+        moved = [k for k in before if k not in frozen
+                 and not torch.equal(before[k], after[k])]
+        run_stats_ok = (len(frozen) == 2 and all(
+            torch.equal(before[k], after[k]) for k in frozen)
+            and len(moved) == len(before) - len(frozen))
+        stats_ok = stats_ok and run_stats_ok
+        log("r21d_train", model_id="0031", remat=remat, batch=size,
+            window=window, data_shape=R21D_SHAPE, dtype="bfloat16",
+            clips_per_s=size / fields["step_ms"] * 1e3,
+            frames_per_s=size * window / fields["step_ms"] * 1e3,
+            model_gflop_per_clip_forward=fwd / 1e9,
+            model_gflop_per_step=flops / 1e9,
+            mfu=flops / (fields["step_ms"] / 1e3) / PEAK_BF16_FLOPS,
+            init_bn_unchanged=run_stats_ok, other_bn_moved=len(moved),
+            **fields)
+        del state, step, model, before, after
+        torch.cuda.empty_cache()
+
+    _, _, step = rebuilt(R21D_ARGV, weights, dev)
+    small = batcher(R21D_OVERFIT_BATCH)
+    overfit = [step(*small(0))[0].item() for _ in range(OVERFIT_STEPS)]
+    lowered = statistics.mean(overfit[-5:]) < statistics.mean(overfit[:5])
+    del step
+    x, y = batcher(R21D_SMALL)(0)
+    gap = first_step_gap(R21D_ARGV, weights, dev, x, y)
+    model, _, _ = rebuilt(R21D_ARGV, weights, dev, torch.float32)
+    pieces = r21d_piece_gaps(model, prepare_input(x, torch.float32))
+    del model
+    pieces_ok = all(p["out_rel"] <= R21D_PIECE_OUT_TOL
+                    and p["stats_rel"] <= TRAIN_STATS_TOL
+                    and p["worst_leaf_rel_l2"] <= R21D_PIECE_GRAD_TOL
+                    for p in pieces.values())
+
+    # remat block against none: the first step's loss and gradients in f32
+    grads = []
+    for remat in ("none", "block"):
+        model, state, _ = rebuilt(R21D_ARGV + [f"--remat={remat}"], weights,
+                                  dev, torch.float32)
+        loss = softmax_ce(model(prepare_input(x, torch.float32), train=True),
+                          y)
+        g = torch.autograd.grad(loss, list(model.parameters()))
+        grads.append((loss.item(), torch.cat([t.flatten() for t in g])))
+        del model, state, g
+    (loss_n, g_n), (loss_b, g_b) = grads
+    remat_loss_rel = abs(loss_b - loss_n) / abs(loss_n)
+    remat_grad_rel = ((g_b - g_n).norm() / g_n.norm()).item()
+    del grads, clips
+    torch.cuda.empty_cache()
+    ok = (finite and lowered and stats_ok and clean and f32_gaps_ok(gap)
+          and pieces_ok
+          and remat_loss_rel <= R21D_REMAT_LOSS_TOL
+          and remat_grad_rel <= R21D_REMAT_GRAD_TOL)
+    log("r21d_train_check", losses_finite=finite, overfit_batch=
+        R21D_OVERFIT_BATCH, overfit_losses=overfit, overfit_lowered=lowered,
+        init_bn_frozen_others_moved=stats_ok, f32_batch=R21D_SMALL, **gap,
+        loss_tol=TRAIN_LOSS_TOL, stats_tol=TRAIN_STATS_TOL,
+        f64_update_tol=F64_UPDATE_TOL, pieces_bf16_vs_f32=pieces,
+        piece_tols=[R21D_PIECE_OUT_TOL, TRAIN_STATS_TOL,
+                    R21D_PIECE_GRAD_TOL],
+        remat_loss_rel=remat_loss_rel,
+        remat_grad_rel_l2=remat_grad_rel,
+        remat_tols=[R21D_REMAT_LOSS_TOL, R21D_REMAT_GRAD_TOL],
+        no_kernel_launched=clean, wall_s=time.perf_counter() - t_phase,
+        ok=ok)
+    if not ok:
+        raise SystemExit("the R(2+1)D train step failed its gates")
+
+
+def r21d_driver_phase(dev):
+    """``train.fit`` of 0031 (window 8, 224^2, batch R21D_DRIVER_BATCH)
+    over in-memory clip splits (R21D_DRIVER_TRAIN train clips, val and test
+    of R21D_DRIVER_EVAL), a resume and ``evaluate --metrics_out``, with the
+    gates of ``fit_resume_evaluate``."""
+    t_phase = time.perf_counter()
+    frames = np.random.default_rng(SEED + 27).integers(
+        0, 256, (R21D_DRIVER_FRAMES, R21D_SHAPE, R21D_SHAPE, 3),
+        dtype=np.uint8)
+    argv = R21D_ARGV + [f"--batch_size={R21D_DRIVER_BATCH}", "--epochs=2",
+                        "--log_interval=1", "--model_id=0031"]
+    splits = {"train": MemorySplit(frames, R21D_DRIVER_TRAIN, None, "train",
+                                   window=R21D_WINDOW),
+              "val": MemorySplit(frames[::-1], R21D_DRIVER_EVAL, None, "val",
+                                 window=R21D_WINDOW),
+              "test": MemorySplit(frames[1:], R21D_DRIVER_EVAL, None, "test",
+                                  window=R21D_WINDOW)}
+    fields, ok = fit_resume_evaluate(dev, argv, splits, SEED + 27,
+                                     R21D_DRIVER_BATCH)
+    log("r21d_driver", epochs=2, batch=R21D_DRIVER_BATCH,
+        train_clips=R21D_DRIVER_TRAIN, eval_clips=R21D_DRIVER_EVAL,
+        window=R21D_WINDOW, data_shape=R21D_SHAPE, **fields,
+        wall_s=time.perf_counter() - t_phase, ok=ok)
+    if not ok:
+        raise SystemExit("the R(2+1)D driver failed its gates")
+
+
 def build_phase():
     """nvcc of every kernel, all started together."""
     from tennis_torch.ops import _build
@@ -2946,7 +3663,11 @@ def main() -> int:
     for counts in (two_stream_phase(torch.device("cuda")),
                    cnnrnn_clips_phase(torch.device("cuda"), frames)):
         launches = {v: launches[v] + counts[v] for v in launches}
+    resnet_train_phase(torch.device("cuda"), frames)
+    resnet_driver_phase(torch.device("cuda"), frames)
     del frames
+    r21d_train_phase(torch.device("cuda"))
+    r21d_driver_phase(torch.device("cuda"))
     log("route_summary", routed_is_fastest_by_batch={
         b: {"fastest": a, "shapes": n} for b, (a, n) in agree.items()})
 

@@ -6,6 +6,7 @@ JAX package) maps to a torch ``state_dict`` by name, with the naming of
 ``tennis_tpu/models/convert.py`` read in the other direction:
 
 - ``a/b/kernel`` (4-d, HWIO)  -> ``a.b.weight`` (OIHW)
+- ``a/b/kernel`` (5-d, DHWIO) -> ``a.b.weight`` (OIDHW, a ``Conv3d``)
 - ``a/b/kernel`` (2-d, in x out) -> ``a.b.weight`` (out x in)
 - ``a/b/embedding`` (2-d, V x E) -> ``a.b.weight`` of an ``nn.Embedding``
   (V x E, the same layout)
@@ -13,9 +14,9 @@ JAX package) maps to a torch ``state_dict`` by name, with the naming of
 - batch_stats ``a/b/mean``/``var`` -> ``a.b.running_mean``/``running_var``
 
 ``to_flax`` reads the other direction by module type: a ``Conv2d`` weight is
-a kernel in HWIO, a ``Linear`` weight a kernel in (in, out), an
-``Embedding`` weight an embedding table as it is, any other 1-d weight a
-BatchNorm scale.
+a kernel in HWIO, a ``Conv3d`` weight one in DHWIO, a ``Linear`` weight a
+kernel in (in, out), an ``Embedding`` weight an embedding table as it is,
+any other 1-d weight a BatchNorm scale.
 
 ``state_to_flax`` and ``state_from_flax`` carry a whole train state
 (``parallel.train_step.TrainState``) in the layout of the JAX package's
@@ -57,6 +58,8 @@ def from_flax(variables: dict) -> dict[str, torch.Tensor]:
         arr = np.asarray(value, dtype=np.float32)
         if leaf == "kernel" and arr.ndim == 4:
             arr, name = arr.transpose(3, 2, 0, 1), "weight"
+        elif leaf == "kernel" and arr.ndim == 5:
+            arr, name = arr.transpose(4, 3, 0, 1, 2), "weight"
         elif leaf == "kernel" and arr.ndim == 2:
             arr, name = arr.T, "weight"
         elif leaf == "embedding" and arr.ndim == 2:
@@ -124,7 +127,7 @@ def _param_leaf(sub, leaf, mod) -> str:
         return "bias"
     if leaf != "weight":
         raise KeyError(f"no flax counterpart for {'.'.join(mod + [leaf])}")
-    if isinstance(sub, torch.nn.Conv2d | torch.nn.Linear):
+    if isinstance(sub, torch.nn.Conv2d | torch.nn.Conv3d | torch.nn.Linear):
         return "kernel"
     if isinstance(sub, torch.nn.Embedding):
         return "embedding"
@@ -134,6 +137,8 @@ def _param_leaf(sub, leaf, mod) -> str:
 def _param_array(sub, leaf, arr: np.ndarray) -> np.ndarray:
     if leaf == "weight" and isinstance(sub, torch.nn.Conv2d):
         return np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+    if leaf == "weight" and isinstance(sub, torch.nn.Conv3d):
+        return np.ascontiguousarray(arr.transpose(2, 3, 4, 1, 0))
     if leaf == "weight" and isinstance(sub, torch.nn.Linear):
         return np.ascontiguousarray(arr.T)
     if leaf == "weight" and not isinstance(sub, torch.nn.Embedding) \

@@ -12,9 +12,11 @@ with its features pooled over ``--window`` and its own head applied.
 ``--save_feats`` dumps the features of ``--split`` only (a ``FrameModel``'s;
 the CNN-RNN and the two-stream net raise ``ValueError``, as in the JAX
 driver). The model is the one the flags compose (``train.build_model``):
-the CNN-RNN over features or clips (``--window > 1 --temp_pool gru|lstm``),
-the two-stream net (``--flow twos|only``), the 6-channel DenseNet (``--flow
-sixc``) or the framewise classifier. ``--vis`` is not ported yet.
+R(2+1)D over clips (``--backbone rdnet --window 8|32``), the CNN-RNN over
+features or clips (``--window > 1 --temp_pool gru|lstm``), the two-stream
+net (``--flow twos|only``), the 6-channel backbone (``--flow sixc``) or the
+framewise classifier over a DenseNet or ResNet-v2. ``--vis`` is not ported
+yet.
 
 Run: ``python -m tennis_torch.evaluate --model_id 0006 --backbone
 DenseNet121`` (``--device cpu`` off the GPU; add the training flags of the

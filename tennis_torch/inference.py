@@ -2,10 +2,11 @@
 
 Classifier: a vision experiment's best epoch (``best_or_latest``) is read
 with ``load_raw``, its ``params``/``batch_stats`` go through the weight
-bridge into ``FrameModel(DenseNet)``, the BN operands are folded once, and
-``predict_probs`` maps a uint8 batch (B, S, S, 3) to host (B, classes)
-softmax on the chosen device: uint8 upload -> ``device_prepare`` -> forward
-(every dense layer through the dense-layer kernel) -> softmax.
+bridge into ``FrameModel(backbone)`` (a DenseNet, whose BN operands are
+folded once, or a ResNet-v2), and ``predict_probs`` maps a uint8 batch (B,
+S, S, 3) to host (B, classes) softmax on the chosen device: uint8 upload ->
+``device_prepare`` -> forward (a DenseNet's dense layers through the
+dense-layer kernel; a ResNet's convolutions through cuDNN) -> softmax.
 ``make_extract_features`` is the same forward stopped at the backbone's
 f32 features, for the feature dump.
 
@@ -90,20 +91,24 @@ def make_predict_probs(model, device: torch.device):
 
 
 def make_extract_features(model, device: torch.device):
-    """Move ``model`` to ``device``, fold its BN operands once, and return
-    ``extract(uint8 (B, S, S, 3)) -> f32 (B, F)`` backbone features, a
-    tensor on ``device``: ``device_prepare`` -> ``model.features`` (every
-    dense layer through the dense-layer kernels on a GPU). The input may be
-    a tensor already on ``device`` or a host array."""
-    from tennis_torch.data.transforms import device_prepare
+    """Move ``model`` (a ``FrameModel``) to ``device``, fold its BN
+    operands once if its backbone is a DenseNet, and return
+    ``extract(uint8 (B, S, S, C) frames or (B, T, S, S, C) clips) -> f32
+    (B, F)`` backbone features, a tensor on ``device``:
+    :func:`prepare_input` -> ``model.features`` (a DenseNet's dense layers
+    through the dense-layer kernels on a GPU; an R(2+1)D takes each clip
+    whole). The input may be a tensor already on ``device`` or a host
+    array."""
+    from tennis_torch.models import DenseNet
 
     model = model.to(device).eval()
-    model.backbone.fold()
+    if isinstance(model.backbone, DenseNet):
+        model.backbone.fold()
 
     @torch.inference_mode()
     def extract(images) -> torch.Tensor:
         x = torch.as_tensor(images).to(device)
-        return model.features(device_prepare(x, model.dtype)).float()
+        return model.features(prepare_input(x, model.dtype)).float()
 
     return extract
 

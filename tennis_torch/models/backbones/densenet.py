@@ -97,16 +97,25 @@ class _BatchNormReLU(torch.autograd.Function):
     x, and to weight and bias), every term in f32 and x's gradient rounded
     once, where autograd over the ops would round each path's part to bf16
     and then add the parts, which nearly cancel. Only x (as it is), y and
-    per-channel vectors are kept: no f32 copy of an activation."""
+    per-channel vectors are kept: no f32 copy of an activation.
+
+    ``relu=False`` leaves the ReLU out (R(2+1)D's BNs before a residual
+    add). ``running=(mean, var)`` normalizes with those statistics in
+    place of the batch's (a frozen BN, flax ``use_running_average=True``
+    under training): they are returned as given, and x's gradient has no
+    path through them."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps, sliced):
+    def forward(ctx, x, weight, bias, eps, sliced, relu=True, running=None):
         acc = torch.promote_types(x.dtype, torch.float32)
         dims = tuple(range(x.dim() - 1))
-        xf = x.to(acc)
-        mean = xf.mean(dims)
-        var = xf.square().mean(dims) - mean * mean
-        del xf
+        if running is None:
+            xf = x.to(acc)
+            mean = xf.mean(dims)
+            var = xf.square().mean(dims) - mean * mean
+            del xf
+        else:  # frozen: the running statistics, which take no gradient
+            mean, var = (t.to(acc) for t in running)
         live = var > 0 if not sliced else torch.ones_like(var, dtype=torch.bool)
         if not sliced:
             var = torch.clamp(var, min=0.0)
@@ -117,9 +126,12 @@ class _BatchNormReLU(torch.autograd.Function):
             y = torch.addcmul(shift.to(x.dtype), x, mul.to(x.dtype))
         else:
             y = torch.addcmul(shift, x, mul).to(x.dtype)
-        y = torch.relu_(y)
-        ctx.save_for_backward(x, y, weight, mean, rstd, mul, live)
+        if relu:
+            y = torch.relu_(y)
+        ctx.save_for_backward(x, y if relu else None, weight, mean, rstd, mul,
+                              live)
         ctx.sliced = sliced
+        ctx.frozen = running is not None
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -129,16 +141,19 @@ class _BatchNormReLU(torch.autograd.Function):
         dims = tuple(range(x.dim() - 1))
         n = x.numel() // x.shape[-1]
         acc = mean.dtype
-        g = torch.where(y > 0, dy, 0).to(acc)
+        g = (dy if y is None else torch.where(y > 0, dy, 0)).to(acc)
         xf = x.to(acc)
         d_shift = g.sum(dims)
         d_mul = (g * xf).sum(dims) - mean * d_shift
-        d_mean = -mul * d_shift
-        d_var = torch.where(live, -0.5 * rstd ** 3 * weight * d_mul, 0.0)
-        d_mean = d_mean - 2 * mean * d_var
         m = mul.to(x.dtype).to(acc) if ctx.sliced else mul
-        dx = g * m + (d_mean / n + xf * (2 * d_var / n))
-        return dx.to(x.dtype), d_mul * rstd, d_shift, None, None
+        if ctx.frozen:
+            dx = g * m
+        else:
+            d_mean = -mul * d_shift
+            d_var = torch.where(live, -0.5 * rstd ** 3 * weight * d_mul, 0.0)
+            d_mean = d_mean - 2 * mean * d_var
+            dx = g * m + (d_mean / n + xf * (2 * d_var / n))
+        return dx.to(x.dtype), d_mul * rstd, d_shift, None, None, None, None
 
 
 class BatchNorm(nn.Module):
@@ -168,16 +183,36 @@ class BatchNorm(nn.Module):
         self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
         self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
-    def train_relu(self, x, stats: list, sliced: bool):
-        """Train mode: ``relu(BN(x))`` in x's dtype with the batch
-        statistics (:class:`_BatchNormReLU`): ``sliced`` for
-        ``_SlicedBNRelu`` (bn1, the transitions, bn_final), else flax
-        ``nn.BatchNorm`` (bn0, bn2). Appends ``(self, mean, var)`` to
-        ``stats`` for the running update."""
+    def train_norm(self, x, stats: list, sliced: bool = False,
+                   relu: bool = True, frozen: bool = False):
+        """Train mode: ``BN(x)`` in x's dtype, then ``relu`` or not
+        (:class:`_BatchNormReLU`), with the batch statistics, appending
+        ``(self, mean, var)`` to ``stats`` for the running update.
+        ``sliced`` for ``_SlicedBNRelu`` (DenseNet's bn1, the transitions,
+        bn_final), else flax ``nn.BatchNorm``. ``frozen`` normalizes with
+        the running statistics (flax ``use_running_average=True`` under
+        training, R(2+1)D's stem): the scale and bias take gradients, the
+        statistics neither gradients nor updates."""
+        running = (self.running_mean, self.running_var) if frozen else None
         y, mean, var = _BatchNormReLU.apply(x, self.weight, self.bias,
-                                            self.eps, sliced)
-        stats.append((self, mean, var))
+                                            self.eps, sliced, relu, running)
+        if not frozen:
+            stats.append((self, mean, var))
         return y
+
+    def eval_norm(self, x, relu: bool = True):
+        """Eval mode (running statistics) of a flax ``nn.BatchNorm``: the
+        affine in f32, rounded once to x's dtype, then ``relu`` or not."""
+        mul, shift = self.fold()
+        y = torch.addcmul(shift, x, mul).to(x.dtype)
+        return torch.relu_(y) if relu else y
+
+    def forward(self, x, train: bool, stats: list, relu: bool = True):
+        """A flax ``nn.BatchNorm`` (then ``relu`` or not) over the last
+        axis of ``x``: :meth:`train_norm` in train mode, else
+        :meth:`eval_norm`."""
+        return self.train_norm(x, stats, relu=relu) if train \
+            else self.eval_norm(x, relu)
 
 
 def _conv(c_in: int, c_out: int, k: int, generator) -> nn.Conv2d:
@@ -211,9 +246,9 @@ class _DenseLayer(nn.Module):
         """Train mode: the (B, H, W, G) growth part of the NHWC ``state``,
         and the layer's ``(bn, mean, var)`` statistics."""
         stats: list = []
-        h = _matmul_1x1(self.bn1.train_relu(state, stats, sliced=True),
+        h = _matmul_1x1(self.bn1.train_norm(state, stats, sliced=True),
                         self.conv1, dtype)
-        h = self.bn2.train_relu(h, stats, sliced=False)
+        h = self.bn2.train_norm(h, stats)
         h = F.conv2d(_nchw(h), self.conv2.weight.to(dtype), padding=1)
         return _nhwc(h), stats
 
@@ -231,7 +266,7 @@ class _Transition(nn.Module):
         self.conv = _conv(c_in, c_out, 1, generator)
 
     def train_forward(self, x, dtype, stats: list):
-        h = _matmul_1x1(self.bn.train_relu(x, stats, sliced=True), self.conv,
+        h = _matmul_1x1(self.bn.train_norm(x, stats, sliced=True), self.conv,
                         dtype)
         return _nhwc(F.avg_pool2d(_nchw(h), 2, stride=2))
 
@@ -336,7 +371,7 @@ class DenseNet(nn.Module):
         stats: list = []
         x = _nhwc(F.conv2d(_nchw(x.to(dt)), self.conv0.weight.to(dt),
                            stride=2, padding=3))
-        x = self.bn0.train_relu(x, stats, sliced=False)
+        x = self.bn0.train_norm(x, stats)
         x = _nhwc(F.max_pool2d(_nchw(x), 3, stride=2, padding=1))
         last = len(self.spec.block_config) - 1
         for i in range(last + 1):
@@ -349,7 +384,7 @@ class DenseNet(nn.Module):
             stats += s
             if i != last:
                 x = getattr(self, f"transition{i}").train_forward(x, dt, stats)
-        x = self.bn_final.train_relu(x, stats, sliced=True)
+        x = self.bn_final.train_norm(x, stats, sliced=True)
         k = min(7, x.shape[1])
         x = _nhwc(F.avg_pool2d(_nchw(x), k, stride=k))
         for bn, mean, var in stats:

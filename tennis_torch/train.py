@@ -6,10 +6,12 @@ with argparse (absl booleans take ``--name``, ``--name=false`` and
 a GPU raises). Three invocations run:
 
 - training (the default, :func:`fit`) of the model the flags compose
-  (:func:`build_model`): a framewise DenseNet classifier; the CNN-RNN
+  (:func:`build_model`): a framewise classifier over a DenseNet or
+  ResNet-v2 backbone (``resnet18_v2`` by default); R(2+1)D-34 over clips
+  (``--backbone rdnet --window 8|32``, the 0031 row); the CNN-RNN
   (``--window > 1 --temp_pool gru|lstm``) over ``--feats_model`` features
   or over frame clips; the two-stream RGB + flow net (``--flow twos``, or
-  ``only``); the 6-channel DenseNet (``--flow sixc``). The balanced train
+  ``only``); the 6-channel backbone (``--flow sixc``). The balanced train
   split (windows too) through the random train geometry
   (``ThreadLocalRng(seed + 1)``; the test geometry for clips and flow), a
   shuffled ``drop_last`` loader and the pinned prefetch, the device augment
@@ -37,13 +39,16 @@ a GPU raises). Three invocations run:
   features pooled over ``--window`` and its own head applied.
 
 On a GPU every DenseNet dense layer of an evaluation runs in a dense-layer
-CUDA kernel; the train step runs plain torch ops, as the JAX package trains
-through its flax module (the CNN-RNN's GRU too: the GRU kernel is the
-captioner's decode's). Every option that only an unported model family
-uses raises ``NotImplementedError`` naming its ``ROADMAP.md`` slice.
+CUDA kernel; ResNet-v2 and R(2+1)D run cuDNN convolutions, as the JAX
+package runs XLA's; the train step runs plain torch ops, as the JAX package
+trains through its flax module (the CNN-RNN's GRU too: the GRU kernel is the
+captioner's decode's). Every option that the port does not run yet raises
+``NotImplementedError`` naming its ``ROADMAP.md`` slice.
 
 Run: ``python -m tennis_torch.train --model_id 0006 --backbone DenseNet121``
-(add ``--save_feats`` for the dump; ``--device cpu`` off the GPU); ``--model_id
+(add ``--save_feats`` for the dump; ``--device cpu`` off the GPU);
+``--model_id 0031 --backbone rdnet --window 8 --data_shape 224`` for
+R(2+1)D; ``--model_id
 0042 --backbone DenseNet121 --feats_model 0006 --temp_pool gru --window 30``
 for the CNN-RNN; ``--model_id 0010 --backbone DenseNet121 --flow twos`` for
 the two-stream net.
@@ -158,28 +163,9 @@ def refuse_unported(args: argparse.Namespace):
     if args.pretrained_npz:
         raise NotImplementedError("--pretrained_npz needs the weight converter, "
                                   "not ported yet (ROADMAP.md slice 10)")
-    if args.backbone.lower() == "rdnet":
-        raise NotImplementedError("rdnet (R(2+1)D) is not ported yet "
-                                  "(ROADMAP.md slice 7)")
     if args.vis:
         raise NotImplementedError("--vis is not ported yet (ROADMAP.md "
                                   "slice 4)")
-
-
-def refuse_untrainable(args: argparse.Namespace):
-    """Raise ``NotImplementedError`` for a training run the port does not
-    have: only DenseNet backbones (their feature width for ``--feats_model``
-    runs), and clips only through the CNN-RNN."""
-    if not args.backbone.lower().replace("-", "").startswith("densenet"):
-        raise NotImplementedError(
-            f"training is not ported for backbone {args.backbone!r}: only "
-            f"DenseNet121/161/169/201 (ROADMAP.md slice 7)")
-    if args.window > 1 and not args.feats_model \
-            and args.temp_pool not in ("gru", "lstm"):
-        raise NotImplementedError("training over clips (--window > 1) "
-                                  "without --temp_pool gru|lstm (the rdnet "
-                                  "family) is not ported yet (ROADMAP.md "
-                                  "slice 7)")
 
 
 def refuse_feature_dump(model):
@@ -254,52 +240,81 @@ def _geometry_transform(args, train: bool):
     return apply
 
 
-def build_model(args, num_classes: int, feats: bool = False):
+def build_model(args, num_classes: int, feats: bool = False,
+                dtype=torch.bfloat16):
     """The model the flags compose, as the JAX driver's ``build_model``
-    does, drawn from ``--seed`` (CPU, f32 parameters, bf16 compute), every
-    DenseNet with ``--remat``:
+    does, drawn from ``--seed`` (CPU, f32 parameters, compute in ``dtype``:
+    the drivers' bf16, or f32 for a comparison), every DenseNet with
+    ``--remat``:
 
     - ``--temp_pool max|mean``: the framewise donor ``FrameModel`` that the
       pooled wrap loads (it trains nothing);
-    - frames with ``--flow twos|only``: ``TwoStreamModel`` of two DenseNet
+    - ``--backbone rdnet`` over clips: ``FrameModel(R21D-34)`` (``--window``
+      8 or 32; ``--remat block`` checkpoints each residual block);
+    - frames with ``--flow twos|only``: ``TwoStreamModel`` of two backbone
       streams (``only``: the flow stream alone);
     - ``--window > 1 --temp_pool gru|lstm``: ``CNNRNN`` (hidden 128) over
       ``feats`` (the backbone's feature width) or over clips through a
       head-less ``FrameModel``;
     - otherwise ``FrameModel(backbone, num_classes)``.
 
-    ``--flow sixc`` makes every backbone above take 6 channels. Feature
-    input needs a temporal model."""
+    ``--flow sixc`` makes every backbone above take 6 channels. Flag sets
+    on which the JAX driver raises raise ``ValueError`` naming them:
+    ``--remat`` with a ResNet, rdnet without ``--window 8|32`` or with
+    ``--remat hires|growth``, feature input without a temporal model, and
+    clips (``--window > 1``) into a framewise model."""
     from tennis_torch.inference import build_frame_model
     from tennis_torch.models import CNNRNN, FrameModel, TwoStreamModel, \
         backbone_feature_dim, get_backbone
+    from tennis_torch.models.r21d import get_r21d
 
     remat = None if args.remat == "none" else args.remat
-    if remat and not args.backbone.lower().startswith("densenet"):
-        raise ValueError("--remat supports DenseNet backbones only")
+    rdnet = args.backbone.lower() == "rdnet"
+    if remat and not (args.backbone.lower().startswith("densenet") or rdnet):
+        raise ValueError("--remat supports DenseNet and rdnet backbones only")
     generator = torch.Generator().manual_seed(args.seed)
     channels = 6 if args.flow else 3
 
     def backbone(in_channels=channels):
         return get_backbone(args.backbone, in_channels=in_channels,
-                            remat=remat, generator=generator)
+                            dtype=dtype, remat=remat, generator=generator)
 
     def frame_model():
         return build_frame_model(args.backbone, num_classes, args.data_shape,
-                                 remat=remat, generator=generator,
-                                 in_channels=channels)
+                                 dtype=dtype, remat=remat,
+                                 generator=generator, in_channels=channels)
 
     if args.temp_pool in ("max", "mean") and not feats:
         return frame_model()
     feature_dim = backbone_feature_dim(args.backbone, args.data_shape)
+    if rdnet and not feats:
+        if args.window not in (8, 32):
+            raise ValueError("rdnet needs --window 8 or 32")
+        if remat not in (None, "block"):
+            raise ValueError("rdnet supports --remat block only (per "
+                             "residual block); hires/growth are DenseNet "
+                             "policies")
+        return FrameModel(get_r21d(34, num_classes, t=args.window,
+                                   dtype=dtype, remat=remat == "block",
+                                   in_channels=channels, generator=generator),
+                          num_classes, dtype=dtype, feature_dim=feature_dim,
+                          generator=generator)
+    if not feats and args.window > 1 and (
+            args.flow in ("twos", "only")
+            or args.temp_pool not in ("gru", "lstm")):
+        raise ValueError(f"--window {args.window} feeds clips to a framewise "
+                         f"{args.backbone} model: pass --temp_pool gru|lstm "
+                         f"(or max|mean for a pooled test) without --flow "
+                         f"twos|only, or --backbone rdnet")
     if not feats and args.flow in ("twos", "only"):
         rgb = None if args.flow == "only" else backbone(3)
-        return TwoStreamModel(rgb, backbone(3), num_classes,
+        return TwoStreamModel(rgb, backbone(3), num_classes, dtype=dtype,
                               feature_dim=feature_dim, generator=generator)
     if args.window > 1 and args.temp_pool in ("gru", "lstm"):
-        return CNNRNN(None if feats else FrameModel(backbone()), num_classes,
-                      hidden_size=128, cell_type=args.temp_pool,
-                      feature_dim=feature_dim, generator=generator)
+        return CNNRNN(None if feats else FrameModel(backbone(), dtype=dtype),
+                      num_classes, hidden_size=128, cell_type=args.temp_pool,
+                      dtype=dtype, feature_dim=feature_dim,
+                      generator=generator)
     if feats:
         raise ValueError("--feats_model requires --temp_pool "
                          "(gru/lstm/max/mean)")
@@ -679,8 +694,6 @@ def train_and_evaluate(args: argparse.Namespace):
     refuse_unported(args)
     pooled = args.temp_pool in ("max", "mean") and not args.save_feats
     training = not (args.save_feats or pooled)
-    if training:
-        refuse_untrainable(args)
     if args.save_feats and args.temp_pool in ("max", "mean"):
         raise ValueError("--save_feats needs a backbone-bearing model "
                          "(FrameModel); it cannot be combined with "

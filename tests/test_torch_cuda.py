@@ -815,3 +815,49 @@ def test_feature_cnnrnn_eval_on_the_card_matches_the_cpu(dev):
     got = make_eval_step(_temporal_model(), dev)(x).cpu()
     assert (db.dense_layer.launches, gru.gru_recurrence.launches) == launches
     assert (got - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+@pytest.mark.parametrize("backbone,shape", [
+    ("resnet18_v2", (4, 64, 64, 3)), ("resnet50_v2", (2, 64, 64, 3)),
+    ("resnet18_v2", (4, 64, 64, 6)), ("rdnet", (2, 8, 64, 64, 3))])
+def test_resnet_and_r21d_forwards_on_the_card_match_the_cpu(dev, backbone,
+                                                            shape):
+    """ResNet-v2 (3 and 6 channels) and R(2+1)D-34 through cuDNN, no
+    kernel of their own: eval logits in f32 (TF32 off) within 1e-4 and in
+    bf16 within 2e-2 of max |logit| of the CPU's; a train-mode step's
+    gradients in f64 within 1e-6 (global relative L2; at these sizes the
+    f32 gradients of ResNet-50 and R(2+1)D lie 2-5% off f64 on either
+    device, ``tests/test_torch_resnet.py``); no dense-layer or GRU kernel
+    launched."""
+    from tennis_torch import train
+    from tennis_torch.inference import make_eval_step
+    from tennis_torch.ops import gru
+
+    argv = [f"--backbone={backbone}", f"--data_shape={shape[-2]}"]
+    if backbone == "rdnet":
+        argv.append("--window=8")
+    if shape[-1] == 6:
+        argv.append("--flow=sixc")
+    args = train.parse_args(argv)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(3))
+    labels = torch.arange(shape[0]) % 11
+    launches = (db.dense_layer.launches, gru.gru_recurrence.launches)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        cpu = train.build_model(args, 11, dtype=dtype)
+        card = train.build_model(args, 11, dtype=dtype)
+        card.load_state_dict(cpu.state_dict())
+        want = make_eval_step(cpu, torch.device("cpu"))(x)
+        got = make_eval_step(card, dev)(x).cpu()
+        assert (got - want).abs().max() <= tol * want.abs().max(), dtype
+    runs = []
+    for device in (torch.device("cpu"), dev):
+        model = train.build_model(args, 11, dtype=torch.float64)
+        model.load_state_dict(cpu.state_dict())
+        model.to(device, torch.float64)
+        loss = torch.nn.functional.cross_entropy(
+            model(x.to(device, torch.float64), train=True),
+            labels.to(device))
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        runs.append(torch.cat([g.flatten().cpu() for g in grads]))
+    assert (runs[1] - runs[0]).norm() <= 1e-6 * runs[0].norm()
+    assert (db.dense_layer.launches, gru.gru_recurrence.launches) == launches

@@ -93,8 +93,10 @@ def write_jax_experiment(base, model_id=MODEL_ID):
 
 
 def run_jax(main, argv):
-    """One JAX driver run through absl, its flags reset first; returns what
-    ``main`` returned."""
+    """One JAX driver run through absl, its flags reset before and after
+    (absl keeps a parsed flag's value across runs in one process, and a
+    later test file in the same worker parses only the flags it sets);
+    returns what ``main`` returned."""
     flags.FLAGS.unparse_flags()
     out = {}
 
@@ -105,6 +107,8 @@ def run_jax(main, argv):
         app.run(run, argv=["driver"] + argv)
     except SystemExit:
         pass
+    finally:
+        flags.FLAGS.unparse_flags()
     return out.get("value")
 
 
@@ -259,19 +263,51 @@ def test_flags_equal_the_jax_drivers():
 
 
 @pytest.mark.parametrize("argv,match", [
-    ([], "training is not ported"),
     (["--vis", "--save_feats"], "--vis"),
-    (["--flow=twos"], "training is not ported for backbone"),
     (["--save_feats", "--multihost"], "multi-device"),
     (["--save_feats", "--num_devices=2"], "multi-device"),
     (["--save_feats", "--pretrained_npz=w.npz"], "pretrained_npz"),
-    (["--temp_pool=gru", "--window=4", "--backbone=rdnet"], "rdnet"),
-    (["--save_feats", "--backbone=rdnet"], "rdnet"),
 ])
 def test_train_refuses_what_is_not_ported(argv, match, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=match):
         train.main(argv + ["--device=cpu"])
+
+
+@pytest.mark.parametrize("argv", [[], ["--flow=twos"]])
+def test_default_backbone_trains(argv, tmp_path, monkeypatch):
+    """The default flags (``resnet18_v2``), framewise and as the two-stream
+    net, once refused, train: one epoch of one batch on the fixture."""
+    root = build_fixture(tmp_path / "ds", with_flow=True)
+    monkeypatch.chdir(tmp_path)
+    state = train.main(argv + [f"--root={root}", "--data_shape=32",
+                               "--batch_size=8", "--epochs=1",
+                               "--max_batches=1", "--every=1,8,8",
+                               "--num_workers=1", "--model_id=d",
+                               "--device=cpu"])
+    tree = ckpt.load_raw(str(tmp_path / "models" / "vision" / "experiments"
+                             / "d" / "0000.params"))
+    assert int(tree["step"]) == state.step == 1
+    stream = tree["params"]["model_flow"] if argv else \
+        tree["params"]["backbone"]
+    assert "stage3_block1" in stream
+
+
+@pytest.mark.parametrize("argv", [
+    ["--temp_pool=gru", "--window=4", "--backbone=rdnet"],
+    ["--save_feats", "--backbone=rdnet"],
+])
+def test_rdnet_off_its_windows_raises_as_the_jax_driver(argv, env, tmp_path,
+                                                       monkeypatch):
+    """rdnet, once refused, runs at ``--window 8|32``; at another window
+    both drivers raise (the JAX one an ``AssertionError``)."""
+    monkeypatch.chdir(tmp_path)
+    full = argv + [f"--root={env['port_root']}", "--data_shape=32",
+                   "--num_workers=1"]
+    with pytest.raises(ValueError, match="rdnet needs --window 8 or 32"):
+        train.main(full + ["--device=cpu"])
+    with pytest.raises(AssertionError, match="rdnet needs --window 8 or 32"):
+        run_jax(jax_train.train_and_evaluate, full + ["--num_devices=1"])
 
 
 def test_evaluate_refuses_vis(tmp_path, monkeypatch):

@@ -196,14 +196,41 @@ def test_training_needs_a_gpu_unless_told_cpu(tmp_path, monkeypatch):
         train.main(["--backbone=DenseNet121"])
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--backbone=resnet18_v2"], "training is not ported for backbone"),
-    (["--backbone=DenseNet121", "--window=4"], "--window > 1"),
-])
-def test_untrainable_runs_are_refused(argv, match, tmp_path, monkeypatch):
+def test_clips_into_a_framewise_densenet_raise(trained, tmp_path,
+                                               monkeypatch):
+    """``--window 4`` without a temporal model feeds clips to a framewise
+    DenseNet: the JAX driver raises initializing it, the port names it."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=match):
-        train.main(argv + ["--device=cpu"])
+    with pytest.raises(ValueError, match="--window 4 feeds clips"):
+        train.main([f"--root={trained['root']}", *COMMON, "--window=4",
+                    "--device=cpu"])
+
+
+def test_resnet_trains_and_the_jax_driver_resumes_it(trained, tmp_path,
+                                                     monkeypatch):
+    """``--backbone resnet18_v2``, once refused, trains an epoch whose file
+    the JAX package loads into its ``TrainState``."""
+    from tennis_tpu.models import FrameModel, get_backbone
+    from tennis_tpu.parallel import create_train_state, sgd_with_schedule
+
+    monkeypatch.chdir(tmp_path)
+    argv = [a for a in COMMON if not a.startswith("--backbone")]
+    train.main([f"--root={trained['root']}", *argv, "--max_batches=2",
+                "--backbone=resnet18_v2", "--model_id=r", "--epochs=1",
+                "--device=cpu"])
+    model = FrameModel(get_backbone("resnet18_v2", dtype=jnp.bfloat16),
+                       num_classes=11, dtype=jnp.bfloat16)
+    tx, _ = sgd_with_schedule(0.001)
+    abstract = jax.eval_shape(lambda: create_train_state(
+        model, jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3), jnp.float32),
+        tx, {"train": True}))
+    path = str(tmp_path / "models" / "vision" / "experiments" / "r" /
+               "0000.params")
+    state = jax_ckpt.load_state(path, abstract)
+    assert int(state.step) == 2
+    np.testing.assert_array_equal(
+        np.asarray(state.params["classes"]["kernel"]),
+        ckpt.load_raw(path)["params"]["classes"]["kernel"])
 
 
 def test_copied_experiment_resumes_where_it_stopped(trained, tmp_path,
