@@ -174,6 +174,34 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    batch, remat block's first-step loss and gradients those of remat none. ``[r21d_driver]``: ``train.fit`` at
    batch 8 over in-memory clip splits (32 train, 21 val and test), a resume
    and ``evaluate``, with ``[resnet_driver]``'s gates;
+7d. the pixels-path captioner and SkipGram (last). ``[kernel_f32]``: the
+   f32 dense-layer kernel against ``dense_layer_reference`` in f32 at the
+   first and last layer shape of each DenseNet121-512 block at batch 2, a
+   ragged 7x7 map and batch 1 (gate: max |kernel - plain| within 1e-4 of
+   max |plain|), each shape's device time beside the plain version's and
+   cuDNN's two convolutions in f32 (TF32 off), and ``[stack_f32]``: the 58
+   layers of one forward at the 64 frames of a decode batch, block by
+   block. ``[skipgram]``: ``train_embeddings.train`` for an
+   epoch over a seeded corpus of 250 words and ~10k sentences with
+   ``--add_extra`` (pairs/s as the log's "wps", the loss over the epoch;
+   gates: finite and falling); its ``embeddings-ex.txt`` is the
+   ``--emb_file`` of ``[pixcap_driver]``. ``[pixcap_train]``: the 0102
+   widths with an f32 DenseNet121 ``src_embed`` at 512^2, ``--remat
+   block``, over seeded in-memory uint8 points (batch 2 x 32 frames,
+   captions of 8-50 ids): 3 warm-up and 10 timed steps, frozen and not
+   (step ms, frames/s, target tokens/s, device busy and idle share, the
+   largest kernels, peak memory); gates: finite losses, 30 steps on one
+   point of 8 frames lower the loss, the first step at that size against
+   the same step with the backbone in f64 (loss, statistics, update),
+   frozen ``src_embed`` unchanged bit for bit while its statistics move, no
+   dense-layer kernel launched in a step. ``[pixcap_driver]``:
+   ``train_gnmt.train`` for an epoch over in-memory uint8 splits with a
+   donor DenseNet121 epoch in the classifier trainer's layout,
+   ``--backbone_from_id``, ``--freeze_backbone``, its val and test decodes,
+   then ``evaluate_gnmt``: 58 f32 dense launches an eval forward, 3 GRU
+   launches a decode batch, the first decode batch's encoder output within
+   1e-4 of the plain-version forward, the epoch files read back bit for
+   bit; decode ms a batch and a step, a decode's idle share;
 8. ``{"kernels": [...]}``, then the card line, then ``{"ok": true, ...}``.
 
 Any failure exits nonzero before the last line. Without a GPU, or without
@@ -188,6 +216,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -209,12 +238,13 @@ BATCH = 8
 N_REQUESTS = 16
 SEED = 0
 KERNELS = ["dense_layer", "dense_layer_persistent", "dense_layer_cluster",
-           "gru_recurrence", "gru_recurrence_async"]
+           "dense_layer_f32", "gru_recurrence", "gru_recurrence_async"]
 # profiler name of each dense-layer kernel variant (no name holds another);
 # the cluster kernel's name also carries its cluster size, <2>, <4> or <8>
 DENSE_KERNELS = {"persistent": "dense_layer_persistent_kernel",
                  "tile": "dense_layer_kernel",
-                 "cluster": "dense_layer_cluster_kernel"}
+                 "cluster": "dense_layer_cluster_kernel",
+                 "f32": "dense_layer_f32_kernel"}
 # profiler name of each GRU kernel variant (neither name holds the other)
 GRU_KERNELS = {"barrier": "gru_recurrence_kernel",
                "async": "gru_recurrence_async_kernel"}
@@ -332,6 +362,46 @@ R21D_PIECE_OUT_TOL, R21D_PIECE_GRAD_TOL = 2e-2, 0.25
 R21D_PIECES = ("stem", "stage1_block1", "stage2_block1", "stage4_block1")
 R21D_DRIVER_FRAMES, R21D_DRIVER_TRAIN, R21D_DRIVER_EVAL = 64, 32, 21
 R21D_DRIVER_BATCH = 8
+
+# the pixels-path captioner: the 0102 widths over an f32 DenseNet121
+# src_embed at 512^2 with --remat block (an f32 block-1 state is 16.8 MB a
+# frame, so batches of a few points: the JAX defaults of 128 / 32 points of
+# hundreds of frames fit no card), seeded uint8 points of PIXCAP_FRAMES
+# frames (the second of a batch ragged) and captions of 8-50 ids; the f64
+# comparison and the repeated batch at 1 point x PIXCAP_SMALL frames; the
+# driver over PIXCAP_POINTS in-memory points drawn from PIXCAP_POOL frames.
+# F32_KERNEL_TOL: max |kernel - plain| / max |plain|, f32 sums in another
+# order. PIXCAP_ENC_TOL: the same measure on an encoder output after 58 f32
+# layers and the GRUs.
+PIXCAP_ARGV = ["--num_hidden=256", "--num_layers=2", "--num_bi_layers=1",
+               "--emb_size=100", "--cell_type=gru", "--backbone=DenseNet121",
+               f"--data_shape={DATA_SHAPE}", "--remat=block",
+               "--optimizer=adam", "--lr=0.001", "--clip=5", "--device=cuda"]
+PIXCAP_BATCH, PIXCAP_FRAMES, PIXCAP_SMALL = 2, 32, 8
+PIXCAP_WARMUP, PIXCAP_TIMED = 3, 10
+PIXCAP_POOL = 64
+PIXCAP_POINTS = {"train": 8, "val": 4, "test": 4}
+PIXCAP_F64_LOSS_TOL, PIXCAP_F64_STATS_TOL = 1e-4, 1e-3
+F32_KERNEL_TOL, PIXCAP_ENC_TOL = 1e-4, 1e-4
+# (name, batch, side, c_in, c_final): first and last layer of each
+# DenseNet121-512 block at batch 2 (a decode batch's frames are B x T), a
+# ragged 7x7 map (DenseNet at 224^2), batch 1
+F32_LAYER_CASES = [
+    ("block0_first", 2, 128, 64, 256), ("block0_last", 2, 128, 224, 256),
+    ("block1_first", 2, 64, 128, 512), ("block1_last", 2, 64, 480, 512),
+    ("block2_first", 2, 32, 256, 1024), ("block2_last", 2, 32, 992, 1024),
+    ("block3_first", 2, 16, 512, 1024), ("block3_last", 2, 16, 992, 1024),
+    ("ragged_7x7", 2, 7, 512, 1024), ("batch1", 1, 128, 64, 256),
+]
+# the 58-layer stack at the frames of one decode batch of [pixcap_driver]
+F32_STACK_BATCH = PIXCAP_BATCH * PIXCAP_FRAMES
+# SkipGram (train_embeddings defaults, one epoch): a 250-word vocabulary
+# (the captioner's words, so the file fills its tgt_embed) over the
+# captions file and an extra corpus of SKIPGRAM_EXTRA sentences (the
+# reference's has 10,817), each sentence mostly of one topic's words
+SKIPGRAM_CAPTIONS, SKIPGRAM_EXTRA = 300, 10_000
+SKIPGRAM_LEN, SKIPGRAM_TOPICS = (6, 20), 25
+SKIPGRAM_PROBE = 8192  # pairs whose mean loss is taken before and after
 
 # (name, T, batch, H, valid lengths): the 0102 serving shape, the lengths of
 # the measured /caption batch (all end before T), --num_hidden 512, the
@@ -452,17 +522,18 @@ def all_device_ms(fn):
     return kernel_device(fn)[0]
 
 
-def layer_work(batch, side, c_in, f=128, g=32):
+def layer_work(batch, side, c_in, f=128, g=32, elem=2):
     """(FLOP, bytes) one dense layer needs: each input read once, each output
-    written once."""
+    written once; ``elem`` bytes a state and kernel element (2 bf16, 4 f32)."""
     px = batch * side * side
     flops = 2 * px * (c_in * f + 9 * f * g)
-    nbytes = 2 * px * (c_in + g) + 2 * (f * c_in + 9 * g * f) + 4 * (2 * c_in + 2 * f)
+    nbytes = elem * px * (c_in + g) + elem * (f * c_in + 9 * g * f) + \
+        4 * (2 * c_in + 2 * f)
     return flops, nbytes
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -473,8 +544,9 @@ def _rand(gen, dev, *shape, lo=None, hi=None, std=1.0):
     return t.normal_(0.0, std, generator=gen)
 
 
-def random_ops(gen, c_in, dev):
-    """Seeded operands of one dense layer at ``c_in``."""
+def random_ops(gen, c_in, dev, dtype=torch.bfloat16):
+    """Seeded operands of one dense layer at ``c_in``, kernels in
+    ``dtype``."""
     from tennis_torch.ops.dense_block import LayerOperands
 
     def rand(*shape, **kw):
@@ -482,19 +554,20 @@ def random_ops(gen, c_in, dev):
 
     return LayerOperands(
         rand(c_in, lo=0.5, hi=1.5), rand(c_in, std=0.5),
-        rand(128, c_in, std=c_in ** -0.5).to(torch.bfloat16),
+        rand(128, c_in, std=c_in ** -0.5).to(dtype),
         rand(128, lo=0.5, hi=1.5), rand(128, std=0.5),
-        rand(3, 3, 32, 128, std=1152 ** -0.5).to(torch.bfloat16))
+        rand(3, 3, 32, 128, std=1152 ** -0.5).to(dtype))
 
 
-def random_layer(gen, batch, side, c_in, c_final, dev):
-    state = _rand(gen, dev, batch, side, side, c_final).to(torch.bfloat16)
-    return state, random_ops(gen, c_in, dev)
+def random_layer(gen, batch, side, c_in, c_final, dev, dtype=torch.bfloat16):
+    state = _rand(gen, dev, batch, side, side, c_final).to(dtype)
+    return state, random_ops(gen, c_in, dev, dtype)
 
 
 def library_convs(state, c_in, ops):
     """The layer's two convolutions as cuDNN calls on contiguous
-    channels-last bf16 inputs: the library yardstick, never on the port's path."""
+    channels-last inputs in the state's dtype (bf16; f32 with TF32 off, as
+    main sets it): the library yardstick, never on the port's path."""
     x = state[..., :c_in].permute(0, 3, 1, 2).contiguous(
         memory_format=torch.channels_last)
     w1 = ops.w1[:, :, None, None].contiguous(memory_format=torch.channels_last)
@@ -502,9 +575,9 @@ def library_convs(state, c_in, ops):
     return lambda: F.conv2d(F.conv2d(x, w1), w2, padding=1)
 
 
-def check_layer(state, got, want, c_in):
+def check_layer(state, got, want, c_in, tol=KERNEL_TOL):
     """(max |kernel - plain| over the growth channels, that over max |plain|,
-    every other channel untouched, ok)."""
+    every other channel untouched, ok: within ``tol``)."""
     part_g = got[..., c_in:c_in + 32].float()
     part_w = want[..., c_in:c_in + 32].float()
     abs_err = (part_g - part_w).abs().max().item()
@@ -512,7 +585,7 @@ def check_layer(state, got, want, c_in):
     untouched = torch.equal(
         torch.cat([got[..., :c_in], got[..., c_in + 32:]], -1),
         torch.cat([state[..., :c_in], state[..., c_in + 32:]], -1))
-    ok = bool(torch.isfinite(part_g).all()) and untouched and rel <= KERNEL_TOL
+    ok = bool(torch.isfinite(part_g).all()) and untouched and rel <= tol
     return abs_err, rel, untouched, ok
 
 
@@ -2448,17 +2521,23 @@ class MemoryCaptionSplit:
                 f"{sum(len(f) for f in self.feats)} frames")
 
 
+def caption_vocab():
+    """The captioners' vocabulary: 4 specials + VOCAB_WORDS words."""
+    from collections import Counter
+
+    from tennis_torch.data.vocab import Vocab
+
+    return Vocab(Counter({f"w{i:03d}": VOCAB_WORDS - i
+                          for i in range(VOCAB_WORDS)}))
+
+
 def caption_train_inputs():
     """The vocabulary (4 specials + VOCAB_WORDS words), the three in-memory
     splits and seeded random weights (flax naming) of the 0102 captioner."""
-    from collections import Counter
-
     from tennis_torch.bridge import to_flax
-    from tennis_torch.data.vocab import Vocab
     from tennis_torch.train_gnmt import build_model, parse_args
 
-    vocab = Vocab(Counter({f"w{i:03d}": VOCAB_WORDS - i
-                           for i in range(VOCAB_WORDS)}))
+    vocab = caption_vocab()
     splits = {name: MemoryCaptionSplit(vocab, n, k, name != "train")
               for k, (name, n) in enumerate(CAP_POINTS.items())}
     model = build_model(parse_args(CAP_TRAIN_ARGV), len(vocab), FEAT_DIM)
@@ -3523,6 +3602,585 @@ def r21d_driver_phase(dev):
         raise SystemExit("the R(2+1)D driver failed its gates")
 
 
+def kernel_f32_phase(dev):
+    """The f32 dense-layer kernel against the plain version in f32 at
+    F32_LAYER_CASES, then the 58 layers of one DenseNet121-512 forward at
+    F32_STACK_BATCH block by block (kernel, plain, cuDNN); returns the max
+    |kernel - plain| and the stack's figures for the kernels line."""
+    from tennis_torch.ops import dense_block as db
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    worst = 0.0
+    name = DENSE_KERNELS["f32"]
+    for case, batch, side, c_in, c_final in F32_LAYER_CASES:
+        state, ops = random_layer(gen, batch, side, c_in, c_final, dev,
+                                  torch.float32)
+        want = db.dense_layer_reference(state.clone(), c_in, ops)
+        routed = db.dense_layer_route(batch, side, side, c_in,
+                                      dtype=torch.float32)
+        before = db.dense_layer.variant_launches["f32"]
+        got = db.dense_layer(state.clone(), c_in, ops)
+        torch.cuda.synchronize()
+        abs_err, rel, untouched, ok = check_layer(state, got, want, c_in,
+                                                  F32_KERNEL_TOL)
+        ok = ok and routed == ("f32", None) and \
+            db.dense_layer.variant_launches["f32"] == before + 1
+        worst = max(worst, abs_err)
+        lib = library_convs(state, c_in, ops)
+        b_ms, b_by = bound(*layer_work(batch, side, c_in, elem=4),
+                           PEAK_F32_FLOPS)
+        device_ms = kernel_device(lambda: db.dense_layer(state, c_in, ops),
+                                  name, launches=1)[0]
+        log("kernel_f32", case=case, shape=[batch, side, side, c_final],
+            c_in=c_in, route=routed[0], tol=F32_KERNEL_TOL,
+            max_abs_err=abs_err, rel_err=rel, untouched=untouched,
+            ms=time_ms(lambda: db.dense_layer(state, c_in, ops)),
+            device_ms=device_ms,
+            plain_ms=time_ms(lambda: db.dense_layer_reference(state, c_in,
+                                                              ops), reps=3),
+            library_ms=time_ms(lib), library_device_ms=all_device_ms(lib),
+            bound_ms=b_ms, bound_by=b_by,
+            roofline_share=b_ms / device_ms, ok=ok)
+        if not ok:
+            raise SystemExit(f"the f32 dense_layer kernel disagrees with its "
+                             f"plain version at {case}")
+        del state, ops, want, got
+
+    # the 58 layers of one forward, block by block, each block's layers in
+    # sequence over one state as the forward runs them
+    rows = []
+    side, channels = DATA_SHAPE // 4, 64
+    for block, num_layers in enumerate((6, 12, 24, 16)):
+        c_final = channels + 32 * num_layers
+        state = _rand(gen, dev, F32_STACK_BATCH, side, side, c_final)
+        layers = [(channels + 32 * j, random_ops(gen, channels + 32 * j, dev,
+                                                 torch.float32))
+                  for j in range(num_layers)]
+
+        def run(fn, st=state, layers=layers):
+            for c_in, ops in layers:
+                fn(st, c_in, ops)
+
+        got, want = state.clone(), state.clone()
+        run(db.dense_layer, got)
+        run(db.dense_layer_reference, want)
+        torch.cuda.synchronize()
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        libs = [library_convs(state, c_in, ops) for c_in, ops in layers]
+        work = [layer_work(F32_STACK_BATCH, side, c_in, elem=4)
+                for c_in, _ in layers]
+        rows.append({
+            "block": block, "side": side, "layers": num_layers,
+            "rel_err": rel,
+            "ms": time_ms(lambda: run(db.dense_layer), reps=3),
+            "device_ms": kernel_device(lambda: run(db.dense_layer), name,
+                                       launches=num_layers)[0],
+            "plain_ms": time_ms(lambda: run(db.dense_layer_reference),
+                                reps=1, rounds=3),
+            "library_ms": time_ms(lambda: [f() for f in libs], reps=3),
+            "flops": sum(w[0] for w in work),
+            "bytes": sum(w[1] for w in work)})
+        del state, layers, got, want, libs
+        channels, side = c_final // 2, side // 2
+    for r in rows:
+        r["bound_ms"], r["bound_by"] = bound(r["flops"], r["bytes"],
+                                             PEAK_F32_FLOPS)
+    stack = {k: sum(r[k] for r in rows) for k in
+             ("ms", "device_ms", "plain_ms", "library_ms", "flops", "bytes")}
+    stack["bound_ms"], stack["bound_by"] = bound(stack["flops"],
+                                                 stack["bytes"], PEAK_F32_FLOPS)
+    ok = all(r["rel_err"] <= F32_KERNEL_TOL for r in rows)
+    log("stack_f32", batch=F32_STACK_BATCH, blocks=rows, **stack,
+        roofline_share=stack["bound_ms"] / stack["device_ms"],
+        tol=F32_KERNEL_TOL, ok=ok)
+    if not ok:
+        raise SystemExit("the f32 dense_layer kernel's stack disagrees with "
+                         "its plain version")
+    return worst, stack
+
+
+def skipgram_phase(root):
+    """``train_embeddings.train`` for one epoch over a seeded corpus under
+    ``root`` (written here): pairs/s from its log, the loss over the epoch;
+    gates: the losses finite and falling, the file written."""
+    import logging
+
+    from tennis_torch import train_embeddings
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 41)
+    words = [f"w{i:03d}" for i in range(VOCAB_WORDS)]
+    # each sentence keeps to one of SKIPGRAM_TOPICS groups of words but for
+    # one word in ten (so that contexts can be learnt), Zipf ranks within
+    ranks = 1.0 / np.arange(1, VOCAB_WORDS // SKIPGRAM_TOPICS + 1)
+    ranks /= ranks.sum()
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    for name, n in (("captions.txt", SKIPGRAM_CAPTIONS),
+                    ("captions_extra_001-045.txt", SKIPGRAM_EXTRA)):
+        lengths = rng.integers(SKIPGRAM_LEN[0], SKIPGRAM_LEN[1] + 1, n)
+        topics = rng.integers(0, SKIPGRAM_TOPICS, n)
+        with open(os.path.join(root, "annotations", name), "w") as f:
+            for i, (k, topic) in enumerate(zip(lengths, topics)):
+                ids = topic + SKIPGRAM_TOPICS * rng.choice(len(ranks), k,
+                                                           p=ranks)
+                stray = rng.random(k) < 0.1
+                ids[stray] = rng.integers(0, VOCAB_WORDS, int(stray.sum()))
+                f.write(f"{i} " + " ".join(words[j] for j in ids) + "\n")
+    lines = []
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    handler = Lines()
+    logger = logging.getLogger("tennis_torch.train_embeddings")
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        args = train_embeddings.parse_args([
+            f"--root={root}", "--epochs=1", "--notsne", "--device=cuda"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, vocab, vecs = train_embeddings.train(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(handler)
+    # the mean loss of a fixed sample of the epoch's pairs, with fixed
+    # negatives, at the trainer's initial parameters and at its last
+    from tennis_torch.models.skipgram import SkipGram
+
+    dev = params["embedding"].device
+    model = SkipGram(len(vocab), args.ngram_buckets, args.emb_size,
+                     vocab.idx_to_counts, num_negatives=args.num_negatives,
+                     idx_to_token=vocab.idx_to_token, device=dev)
+    coded = [[vocab[t] for t in sent if t in vocab] for sent in
+             train_embeddings.load_corpus(root, True)]
+    centers, contexts = (torch.from_numpy(a[:SKIPGRAM_PROBE]).to(dev) for a
+                         in train_embeddings.center_context_pairs(
+                             coded, args.window, args.seed + 1))
+    negatives = model.sample_negatives(
+        torch.Generator(device=dev).manual_seed(SEED + 41), len(centers))
+    initial = model.init_params(
+        torch.Generator(device=dev).manual_seed(args.seed))
+    with torch.no_grad():
+        probe = [model.loss(p, centers, contexts, negatives).mean().item()
+                 for p in (initial, params)]
+    pairs = [int(m.split()[2]) for m in lines if m.startswith("epoch 1:")]
+    progress = [m for m in lines if m.startswith("epoch 1, iter")]
+    losses = [float(m.split("loss ")[1].split(",")[0]) for m in progress]
+    wps = [float(m.rsplit(", ", 1)[1].split("K")[0]) * 1e3 for m in progress]
+    path = os.path.join(root, "embeddings-ex.txt")
+    ok = (len(losses) >= 4 and bool(np.isfinite(losses + probe).all())
+          and probe[1] < probe[0] and os.path.exists(path)
+          and bool(np.isfinite(vecs).all()))
+    log("skipgram", vocab=len(vocab), sentences=SKIPGRAM_CAPTIONS +
+        SKIPGRAM_EXTRA, pairs=pairs[0] if pairs else None,
+        batch=args.batch_size, train_wall_s=wall,
+        pairs_per_s=(pairs[0] // args.batch_size * args.batch_size) / wall
+        if pairs else None, wps_logged_median=statistics.median(wps)
+        if wps else None, losses_logged=losses, probe_pairs=len(centers),
+        probe_loss_start_end=probe, file=os.path.basename(path),
+        wall_s=time.perf_counter() - t_phase, ok=ok)
+    if not ok:
+        raise SystemExit("the SkipGram trainer failed its gates")
+    return path
+
+
+class MemoryPixelSplit:
+    """An in-memory captions-mode split of uint8 frames with what
+    ``train_gnmt`` and the bucketed loader read of a TennisSet (see
+    ``MemoryCaptionSplit``): point i has ``frames[i]`` frames of the shared
+    ``pool``, from a seeded offset, and a caption of 8-50 ids."""
+
+    def __init__(self, vocab, pool, n, offset, inference,
+                 frames=(PIXCAP_FRAMES // 2, PIXCAP_FRAMES)):
+        from tennis_torch.data.tennis_set import caption_ids
+
+        rng = np.random.default_rng([SEED + 42, offset])
+        self.vocab, self.inference, self._split = vocab, inference, offset
+        self.pool = pool
+        self.lengths = rng.integers(frames[0], frames[1] + 1, n)
+        self.starts = rng.integers(0, len(pool), n)
+        words = rng.integers(CAP_IDS_LEN[0] - 2, CAP_IDS_LEN[1] - 1, n)
+        self.captions = [" ".join(vocab.idx_to_token[4 + int(w)] for w in
+                                  rng.integers(0, VOCAB_WORDS, k))
+                         for k in words]
+        self.ids = [caption_ids(vocab, c) for c in self.captions]
+
+    def __len__(self):
+        return len(self.ids)
+
+    def __getitem__(self, i):
+        idx = (self.starts[i] + np.arange(self.lengths[i])) % len(self.pool)
+        item = (self.pool[idx], self.ids[i], int(self.lengths[i]),
+                len(self.ids[i]))
+        return item + (i,) if self.inference else item
+
+    def get_captions(self, ids=False, split=False):
+        if ids:
+            return list(self.ids)
+        return [c.split() if split else c for c in self.captions]
+
+    def get_data_lens(self):
+        return [(int(n), len(c)) for n, c in zip(self.lengths, self.ids)]
+
+    def stats(self):
+        return (f"in-memory pixels split {self._split}: {len(self)} points, "
+                f"{int(self.lengths.sum())} frames")
+
+
+def pixcap_model(args, vocab, tree, dev, backbone_dtype=torch.float32):
+    """The pixels-path captioner the flags describe with ``tree``'s
+    weights on ``dev``; ``backbone_dtype`` float64 runs its backbone in f64
+    (the GNMT computes in f32, as the package does)."""
+    from tennis_torch.bridge import load_flax
+    from tennis_torch.train_gnmt import build_model
+
+    model = load_flax(build_model(args, len(vocab)), tree).to(dev)
+    if backbone_dtype != torch.float32:
+        model.src_embed.dtype = backbone_dtype
+        model.src_embed.to(backbone_dtype)
+    return model
+
+
+def pixcap_train_phase(dev, vocab):
+    """The pixels-path captioner's train step (0102 widths, f32 DenseNet121
+    at 512^2, remat block) through make_seq2seq_train_step over seeded
+    uint8 batches on the device, --freeze_backbone off and on: times,
+    rates, the device's share; gates: finite losses, a repeated batch
+    learnt, the first step against the backbone in f64, frozen src_embed
+    unchanged bit for bit with its statistics moved, no dense-layer kernel
+    launched in a step."""
+    import argparse
+
+    from tennis_torch.bridge import to_flax
+    from tennis_torch.models.gnmt import masked_ce_loss
+    from tennis_torch.parallel.train_step import adam_with_clip, \
+        create_seq2seq_state, make_seq2seq_train_step
+    from tennis_torch.train_gnmt import build_model, parse_args
+
+    t_phase = time.perf_counter()
+    args = parse_args(PIXCAP_ARGV)
+    tree = random_flax_tree(to_flax(build_model(args, len(vocab))),
+                            np.random.default_rng(SEED + 43))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    pool = torch.randint(0, 256, (PIXCAP_POOL, DATA_SHAPE, DATA_SHAPE, 3),
+                         dtype=torch.uint8, device=dev, generator=gen)
+    rng = np.random.default_rng(SEED + 43)
+
+    def make_batch(i, points=PIXCAP_BATCH, frames=PIXCAP_FRAMES):
+        lengths = [frames] + [frames - 5] * (points - 1)
+        idx = (torch.arange(points * frames, device=dev) + 7 * i) % PIXCAP_POOL
+        src = pool[idx].reshape(points, frames, DATA_SHAPE, DATA_SHAPE, 3)
+        src = src.clone()
+        for b, n in enumerate(lengths):
+            src[b, n:] = 0  # the loader's padded steps
+        r = np.random.default_rng([SEED + 43, i])
+        caps = r.integers(CAP_IDS_LEN[0], CAP_IDS_LEN[1] + 1, points)
+        tgt = np.ones((points, int(caps.max())), np.int32)
+        for b, n in enumerate(caps):
+            tgt[b, :n] = r.integers(4, len(vocab), n)
+        return (src, torch.from_numpy(tgt).to(dev),
+                torch.tensor(lengths, dtype=torch.float32, device=dev),
+                torch.from_numpy(caps.astype(np.float32)).to(dev))
+
+    batches = [make_batch(i) for i in range(4)]
+    runs, ok = {}, True
+    for freeze in (False, True):
+        model = pixcap_model(args, vocab, tree, dev)
+        state = create_seq2seq_state(model, adam_with_clip(args.clip), args.lr,
+                                     freeze)
+        step = make_seq2seq_train_step(state, masked_ce_loss)
+        before = {k: v.clone() for k, v in model.src_embed.state_dict().items()}
+        params = {n for n, _ in model.src_embed.named_parameters()}
+        reset_kernel_counts()
+
+        def batch(i):
+            return (*batches[i % len(batches)], rng.integers(2 ** 31))
+
+        _, fields, by_name = time_steps(lambda *b: (step(*b), None), batch,
+                                        PIXCAP_WARMUP, PIXCAP_TIMED)
+        counts = kernel_counts()
+        clean = kernel_launches_in(by_name) == 0 and \
+            sum(counts[0].values()) == 0 and counts[1] == 0
+        after = model.src_embed.state_dict()
+        frozen_ok = (not freeze) or (
+            all(torch.equal(before[k], after[k]) for k in params)
+            and all(not torch.equal(before[k], after[k])
+                    for k in before if k not in params))
+        frames = PIXCAP_BATCH * PIXCAP_FRAMES
+        tokens = statistics.mean(float(b[3].sum()) for b in batches)
+        log("pixcap_train", freeze_backbone=freeze, batch=PIXCAP_BATCH,
+            frames_per_point=PIXCAP_FRAMES, frames_per_step=frames,
+            data_shape=DATA_SHAPE, remat=args.remat, dtype="float32",
+            tf32=torch.backends.cudnn.allow_tf32,
+            frames_per_s=frames / fields["step_ms"] * 1e3,
+            target_tokens_per_s=tokens / fields["step_ms"] * 1e3,
+            frozen_unchanged_stats_moved=frozen_ok,
+            no_kernel_launched=clean, **fields)
+        ok = ok and fields["losses_finite"] and frozen_ok and clean
+        runs[freeze] = fields["step_ms"]
+        del model, state, step, before, after
+        torch.cuda.empty_cache()
+
+    # 30 steps on one repeated small batch, unfrozen
+    model = pixcap_model(args, vocab, tree, dev)
+    state = create_seq2seq_state(model, adam_with_clip(args.clip), args.lr)
+    step = make_seq2seq_train_step(state, masked_ce_loss)
+    small = make_batch(0, 1, PIXCAP_SMALL)
+    overfit = [step(*small, rng.integers(2 ** 31)).item()
+               for _ in range(OVERFIT_STEPS)]
+    lowered = statistics.mean(overfit[-5:]) < statistics.mean(overfit[:5])
+    del model, state, step
+
+    # the first step at dropout 0, f32 against the backbone in f64
+    no_drop = argparse.Namespace(**{**vars(args), "dropout": 0.0})
+    results = []
+    for dtype in (torch.float32, torch.float64):
+        model = pixcap_model(no_drop, vocab, tree, dev, dtype)
+        state = create_seq2seq_state(model, adam_with_clip(args.clip), args.lr)
+        p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        loss = make_seq2seq_train_step(state, masked_ce_loss)(*small, 5).item()
+        update = torch.cat([(p.detach() - p0[n]).double().flatten()
+                            for n, p in model.named_parameters()])
+        stats = torch.cat([b.double().flatten() for b in model.buffers()])
+        results.append((loss, update, stats))
+        del model, state, p0
+    (l32, u32, s32), (l64, u64, s64) = results
+    gap = {"loss_f32": l32, "loss_f64": l64,
+           "loss_rel": abs(l32 - l64) / abs(l64),
+           "stats_rel": ((s32 - s64).abs().max() / s64.abs().max()).item(),
+           "update_rel_l2": ((u32 - u64).norm() / u64.norm()).item()}
+    del results, pool, batches
+    torch.cuda.empty_cache()
+    ok = (ok and lowered and gap["loss_rel"] <= PIXCAP_F64_LOSS_TOL
+          and gap["stats_rel"] <= PIXCAP_F64_STATS_TOL
+          and gap["update_rel_l2"] <= F64_UPDATE_TOL)
+    log("pixcap_train_check", overfit_points=1, overfit_frames=PIXCAP_SMALL,
+        overfit_losses=overfit, overfit_lowered=lowered,
+        f64_points=1, f64_frames=PIXCAP_SMALL, **gap,
+        tols=[PIXCAP_F64_LOSS_TOL, PIXCAP_F64_STATS_TOL, F64_UPDATE_TOL],
+        step_ms={"train": runs[False], "frozen": runs[True]},
+        wall_s=time.perf_counter() - t_phase, ok=ok)
+    if not ok:
+        raise SystemExit("the pixels-path captioner's train step failed its "
+                         "gates")
+
+
+def pixcap_driver_phase(dev, vocab, root):
+    """``train_gnmt.train`` of the pixels-path captioner for an epoch over
+    in-memory uint8 splits, its src_embed grafted from a DenseNet121 donor
+    epoch (``--backbone_from_id``) and frozen, ``--emb_file`` from
+    ``[skipgram]`` under ``root``; then ``evaluate_gnmt --force``. Gates: 58
+    f32 dense launches an eval forward, 3 GRU launches a decode batch, the
+    first decode batch's encoder output against the plain-version forward,
+    the epoch files read back bit for bit. Returns the dense launches by
+    route of the whole run."""
+    import logging
+    import tempfile
+    from unittest import mock
+
+    from tennis_torch import evaluate_gnmt, train_gnmt
+    from tennis_torch.bridge import from_flax, state_to_flax, to_flax
+    from tennis_torch.models import FrameModel, backbone_feature_dim, \
+        get_backbone
+    from tennis_torch.models.gnmt import NMTModel
+    from tennis_torch.ops import dense_block as db
+    from tennis_torch.ops import gru, rnn
+    from tennis_torch.parallel.train_step import create_train_state, \
+        sgd_with_schedule
+    from tennis_torch.translation import BeamSearchTranslator
+    from tennis_torch.utils import checkpoint as ckpt
+    from tennis_torch.utils import msgpack_codec
+    from tennis_torch.utils.experiments import experiment_dir
+
+    t_phase = time.perf_counter()
+    pool = np.random.default_rng(SEED + 44).integers(
+        0, 256, (PIXCAP_POOL, DATA_SHAPE, DATA_SHAPE, 3), dtype=np.uint8)
+    splits = [MemoryPixelSplit(vocab, pool, n, k, name != "train")
+              for k, (name, n) in enumerate(PIXCAP_POINTS.items())]
+    argv = PIXCAP_ARGV + [
+        f"--root={root}", "--model_id=pix", "--backbone_from_id=0006",
+        "--freeze_backbone", "--epochs=1", f"--batch_size={PIXCAP_BATCH}",
+        f"--test_batch_size={PIXCAP_BATCH}", "--emb_file=embeddings-ex.txt",
+        "--num_workers=2", "--log_interval=1"]
+    translate = BeamSearchTranslator.translate_tokens
+    save = ckpt.AsyncCheckpointer.save
+    decode_step = NMTModel.decode_step
+    decodes, saved, lines = [], [], []
+    steps, compared = [0], [0]
+
+    def counting_decode_step(self, *a, **kw):
+        steps[0] += 1
+        return decode_step(self, *a, **kw)
+
+    def recording_translate(self, src, src_valid_length, vocab_):
+        B, T = src.shape[:2]
+        dense0 = dict(db.dense_layer.variant_launches)
+        gru0, steps0 = gru.gru_recurrence.launches, steps[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = translate(self, src, src_valid_length, vocab_)
+        torch.cuda.synchronize()
+        rec = {"B": B, "T": T, "ms": (time.perf_counter() - t0) * 1e3,
+               "dense": {v: n - dense0[v] for v, n in
+                         db.dense_layer.variant_launches.items()},
+               "gru": gru.gru_recurrence.launches - gru0,
+               "steps": steps[0] - steps0}
+        if not decodes:  # the first decode batch: kernels against plain
+            vl = torch.as_tensor(src_valid_length, device=dev).to(torch.int32)
+            model = self._model
+            before = (db.dense_layer.launches, gru.gru_recurrence.launches)
+            with torch.inference_mode(), rnn.gru_decode():
+                mem_k, _ = model.encode(src, vl)
+                with db.plain_dense_layers(model):
+                    mem_p, _ = model.encode(src, vl)
+            torch.cuda.synchronize()
+            # launches of the comparison are not the path's: taken off below
+            compared[0] += db.dense_layer.launches - before[0]
+            rec["encoder_rel_err"] = ((mem_k - mem_p).abs().max()
+                                      / mem_p.abs().max()).item()
+            rec["profile"] = (self, src, src_valid_length)
+        decodes.append(rec)
+        return out
+
+    def recording_save(self, path, tree_):
+        saved.append((path, tree_))
+        return save(self, path, tree_)
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    handler = Lines()
+    logging.getLogger().addHandler(handler)
+    cwd = os.getcwd()
+    try:
+        with tempfile.TemporaryDirectory() as work, \
+                mock.patch.object(BeamSearchTranslator, "translate_tokens",
+                                  recording_translate), \
+                mock.patch.object(NMTModel, "decode_step",
+                                  counting_decode_step), \
+                mock.patch.object(ckpt.AsyncCheckpointer, "save",
+                                  recording_save):
+            os.chdir(work)
+            # the donor: a DenseNet121 classifier's epoch in the classifier
+            # trainer's layout (f32 parameters, as flax keeps its masters)
+            donor = FrameModel(get_backbone("DenseNet121"), 11,
+                               feature_dim=backbone_feature_dim(
+                                   "DenseNet121", DATA_SHAPE))
+            donor.load_state_dict(from_flax(random_flax_tree(
+                to_flax(donor), np.random.default_rng(SEED + 45))))
+            tx, _ = sgd_with_schedule(0.01)
+            donor_tree = state_to_flax(create_train_state(donor, tx))
+            ckpt.save_state(ckpt.epoch_path(experiment_dir("vision", "0006"),
+                                            0), donor_tree)
+            saved.clear()
+            args = train_gnmt.parse_args(argv)
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            state = train_gnmt.train(args, tuple(splits))
+            wall_train = time.perf_counter() - t0
+            n_train_decodes = len(decodes)
+            exp = os.path.join("models", "captioning", "experiments", "pix")
+            identical = len(saved) >= 2 and all(
+                msgpack_codec.serialize(ckpt.load_raw(p))
+                == msgpack_codec.serialize(t) for p, t in saved)
+            layout = sorted(ckpt.load_raw(ckpt.epoch_path(exp, 0))[
+                "opt_state"]["inner_state"])
+            donor_kept = all(
+                torch.equal(p.detach().cpu(), q) for p, q in zip(
+                    state.model.src_embed.parameters(),
+                    donor.backbone.parameters()))
+            t0 = time.perf_counter()
+            suite = evaluate_gnmt.evaluate(evaluate_gnmt.parse_args(
+                argv + ["--force"]), tuple(splits))
+            wall_eval = time.perf_counter() - t0
+            dense_counts, gru_count = kernel_counts()
+            dense_counts["f32"] -= compared[0]
+            self_, src, src_vl = decodes[0]["profile"]
+            wall = []
+
+            def one_decode():
+                t = time.perf_counter()
+                translate(self_, src, src_vl, vocab)
+                wall.append((time.perf_counter() - t) * 1e3)
+
+            # a trace that dropped kernel records is taken again
+            for _ in range(TRACE_ATTEMPTS):
+                by_name = device_profile(one_decode)
+                if sum(v[1] for k, v in by_name.items()
+                       if DENSE_KERNELS["f32"] in k) == 58:
+                    break
+            os.chdir(cwd)
+    finally:
+        os.chdir(cwd)
+        logging.getLogger().removeHandler(handler)
+
+    busy_ms = sum(v[0] for k, v in by_name.items()
+                  if not k.startswith(("Memcpy", "Memset")))
+    traced = sum(v[1] for k, v in by_name.items() if DENSE_KERNELS["f32"] in k)
+    per_forward = [r["dense"] for r in decodes]
+    launches_ok = bool(decodes) and all(
+        d == {**dict.fromkeys(db.ROUTES, 0), "f32": 58}
+        for d in per_forward) and all(r["gru"] == 3 for r in decodes)
+    enc = decodes[0]["encoder_rel_err"]
+    emb_loaded = any(m.startswith("loaded tgt embeddings") for m in lines)
+    ok = (launches_ok and enc <= PIXCAP_ENC_TOL and identical
+          and layout == ["0", "1", "2"] and donor_kept and emb_loaded
+          and set(suite) >= {"Bleu_4", "CIDEr"})
+    dec_ms = [r["ms"] for r in decodes]
+    step_ms = [r["ms"] / r["steps"] for r in decodes]
+    log("pixcap_driver", epochs=1, points=PIXCAP_POINTS,
+        frames_per_point=[PIXCAP_FRAMES // 2, PIXCAP_FRAMES],
+        batch=PIXCAP_BATCH, data_shape=DATA_SHAPE, decodes=len(decodes),
+        decodes_in_training=n_train_decodes,
+        decode_shapes_B_T=[[r["B"], r["T"]] for r in decodes],
+        dense_launches_per_decode=per_forward[0],
+        gru_launches_per_decode=sorted({r["gru"] for r in decodes}),
+        launches_ok=launches_ok, dense_launches_in_run=dense_counts,
+        gru_launches_in_run=gru_count, encoder_rel_err=enc,
+        encoder_tol=PIXCAP_ENC_TOL,
+        decode_ms_median=statistics.median(dec_ms), decode_ms_min=min(dec_ms),
+        decode_ms_max=max(dec_ms),
+        decode_ms_per_step_median=statistics.median(step_ms),
+        decode_profiled_B_T=[decodes[0]["B"], decodes[0]["T"]],
+        decode_profiled_f32_launches=traced,
+        decode_device_busy_ms=busy_ms, decode_wall_ms=wall[-1],
+        decode_idle_share=1 - busy_ms / wall[-1],
+        decode_top=[[k[:60], v[0], v[1]] for k, v in
+                    sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]],
+        train_wall_s=wall_train, evaluate_wall_s=wall_eval,
+        saved_read_back_identical=identical, saved_files=len(saved),
+        optimizer_chain=layout, donor_kept_bit_for_bit=donor_kept,
+        tgt_embed_from_skipgram=emb_loaded, metrics=suite,
+        wall_s=time.perf_counter() - t_phase, ok=ok)
+    if not ok:
+        raise SystemExit("the pixels-path captioning driver failed its gates")
+    return dense_counts
+
+
+def dense_f32_entry(worst_abs, stack, launches):
+    """The kernels-line entry of the f32 dense-layer kernel over the 58
+    layers of one DenseNet121-512 forward at F32_STACK_BATCH."""
+    return {
+        "name": "dense_layer_f32", "route": "cuda",
+        "source": "tennis_torch/csrc/dense_layer_f32.cu",
+        "replaces": "tennis_tpu/ops/pallas/dense_block.py:92",
+        "launches": launches, "max_abs_err": worst_abs,
+        "ms": stack["ms"], "device_ms": stack["device_ms"],
+        "plain_ms": stack["plain_ms"], "bound_ms": stack["bound_ms"],
+        "bound_by": stack["bound_by"], "library_ms": stack["library_ms"],
+        "work": f"the 58 dense layers of an f32 DenseNet121 at "
+                f"{DATA_SHAPE}^2, batch {F32_STACK_BATCH} (the pixels-path "
+                f"captioner's src_embed), f32 peak 67 TFLOP/s; launches count "
+                f"the eval forwards of [pixcap_driver] (its val and test "
+                f"decodes and losses, and evaluate_gnmt); library_ms is "
+                f"cuDNN's two convolutions a layer in f32, TF32 off",
+    }
+
+
 def build_phase():
     """nvcc of every kernel, all started together."""
     from tennis_torch.ops import _build
@@ -3636,6 +4294,7 @@ def main() -> int:
 
     build_phase()
     max_abs = kernel_phase()
+    f32_abs, f32_stack = kernel_f32_phase(torch.device("cuda"))
     agree = route_phase()
     stack = stack_phase()
     stack64_phase()
@@ -3668,6 +4327,11 @@ def main() -> int:
     del frames
     r21d_train_phase(torch.device("cuda"))
     r21d_driver_phase(torch.device("cuda"))
+    with tempfile.TemporaryDirectory() as root:
+        skipgram_phase(root)
+        pixcap_train_phase(torch.device("cuda"), caption_vocab())
+        f32_counts = pixcap_driver_phase(torch.device("cuda"), caption_vocab(),
+                                         root)
     log("route_summary", routed_is_fastest_by_batch={
         b: {"fastest": a, "shapes": n} for b, (a, n) in agree.items()})
 
@@ -3677,6 +4341,7 @@ def main() -> int:
                     max_abs),
         dense_entry("dense_layer_cluster", "cluster", stack, launches,
                     max_abs),
+        dense_f32_entry(f32_abs, f32_stack, f32_counts["f32"]),
         gru_entry("gru_recurrence", "barrier", gru_rows, gru_launches, gru_abs),
         gru_entry("gru_recurrence_async", "async", gru_rows, gru_launches,
                   gru_abs)]}))

@@ -169,6 +169,15 @@ def _is_seq2seq(state) -> bool:
     return isinstance(state.opt_state, InjectState)
 
 
+def _seq2seq_chain(state, inner: dict) -> dict:
+    """The captioner's optax chain state around ``inner`` (adam or sgd):
+    ``{"0": clip, "1": inner}``, or under ``freeze_backbone`` ``{"0":
+    masked(set_to_zero), "1": clip, "2": inner}``."""
+    if state.freeze_backbone:
+        return {"0": {"inner_state": {}}, "1": {}, "2": inner}
+    return {"0": {}, "1": inner}
+
+
 def _seq2seq_to_flax(state) -> dict:
     opt = state.opt_state
     if opt.inner is None:  # optax.sgd(lr): identity, then the -lr scale
@@ -183,7 +192,7 @@ def _seq2seq_to_flax(state) -> dict:
                  "hyperparams": {"learning_rate": np.asarray(
                      opt.learning_rate, np.float32)},
                  "hyperparams_states": {},
-                 "inner_state": {"0": {}, "1": inner}}
+                 "inner_state": _seq2seq_chain(state, inner)}
     return _sorted({"params": params, "batch_stats": stats,
                     "opt_state": opt_state})
 
@@ -198,10 +207,15 @@ def _seq2seq_from_flax(state, tree: dict) -> None:
         raise KeyError(f"not an inject_hyperparams optimizer state: keys "
                        f"{sorted(opt_tree)}")
     chain = opt_tree["inner_state"]
-    if set(chain) != {"0", "1"} or set(chain["1"]) != {"0", "1"}:
-        raise KeyError(f"not a clip + adam|sgd chain: keys {sorted(chain)}")
+    want = _seq2seq_chain(state, None)
+    last = max(want)  # the adam|sgd stage; the stages before it are empty
+    if set(chain) != set(want) or set(chain[last]) != {"0", "1"} or any(
+            chain[k] != want[k] for k in want if k != last):
+        raise KeyError(f"not the chain of --freeze_backbone "
+                       f"{state.freeze_backbone} (mask, clip, adam|sgd): "
+                       f"keys {sorted(chain)}")
     opt = state.opt_state
-    adam = chain["1"]["0"]
+    adam = chain[last]["0"]
     if (opt.inner is None) != (not adam):
         raise ValueError("the optimizer state is of the other --optimizer")
     moments = {}
@@ -248,7 +262,10 @@ def state_to_flax(state) -> dict:
     ``inject_hyperparams`` state
     ``{"count", "hyperparams": {"learning_rate": f32}, "hyperparams_states":
     {}, "inner_state": {"0": {} (the clip), "1": {"0": {"count", "mu",
-    "nu"} (Adam; {} for sgd), "1": {} (the -lr scale)}}}``, counts int32."""
+    "nu"} (Adam; {} for sgd), "1": {} (the -lr scale)}}}``, counts int32;
+    under ``freeze_backbone`` the chain has a first stage, the mask:
+    ``{"0": {"inner_state": {}}, "1": {} (the clip), "2": {"0": Adam, "1":
+    {}}}``, with moments over every parameter (``src_embed``'s zero)."""
     if _is_seq2seq(state):
         return _seq2seq_to_flax(state)
     params, stats = _flax_trees(state.model)

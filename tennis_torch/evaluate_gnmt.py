@@ -1,10 +1,12 @@
 """Captioning evaluator (counterpart of ``tennis_tpu/evaluate_gnmt.py``),
-features path.
+features and pixels paths.
 
 Reads the experiment's ``best_test_out.txt`` when it exists (unless
 ``--force``); otherwise loads ``valid_best.params`` (written by either
 package), beam-decodes the test split in buckets (the encoder's GRU
-recurrences through the CUDA kernel on a GPU) and writes that file. Then it
+recurrences through the CUDA kernel on a GPU; on the pixels path the
+``src_embed`` DenseNet's dense layers through the f32 dense-layer kernel)
+and writes that file. Then it
 scores the hypotheses with the NLG suite and, with ``--metrics_out``, dumps
 the suite as JSON: Bleu_1..4, METEOR and ROUGE_L as fractions in [0, 1],
 CIDEr on the pycocoevalcap scale (its internal x10 applied).
@@ -41,7 +43,7 @@ def evaluate(args: argparse.Namespace, datasets=None) -> dict:
     (train, val, test) replaces the on-disk splits, as in
     ``train_gnmt.train``."""
     from tennis_torch.bridge import load_flax
-    from tennis_torch.inference import resolve_device
+    from tennis_torch.inference import fold_densenets, resolve_device
     from tennis_torch.metrics.nlg import nlg_metric_suite
     from tennis_torch.utils import checkpoint as ckpt
     from tennis_torch.utils.captioning import read_sentences, write_sentences
@@ -68,11 +70,13 @@ def evaluate(args: argparse.Namespace, datasets=None) -> dict:
         best_path = os.path.join(exp_dir, "valid_best.params")
         if not os.path.exists(best_path):
             raise FileNotFoundError(f"{best_path} (train first)")
-        model = build_model(args, len(vocab), feature_dim(data_test))
+        model = build_model(args, len(vocab), feature_dim(data_test)
+                            if args.feats_model else None)
         tree = ckpt.load_raw(best_path)
         load_flax(model, {"params": tree["params"],
                           "batch_stats": tree.get("batch_stats", {})})
         model.to(device).eval()
+        fold_densenets(model)
         log.info("loaded %s", best_path)
         hyps = decode_split(make_translator(args, model, vocab), vocab, loader,
                             device)

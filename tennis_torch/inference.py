@@ -125,6 +125,18 @@ def prepare_input(x: torch.Tensor, dtype) -> torch.Tensor:
     return device_prepare(flat, dtype).reshape(x.shape)
 
 
+def fold_densenets(model):
+    """Fold the BN operands of every DenseNet of ``model`` once (a frame
+    model's backbone, a clip CNN-RNN's ``model.backbone``, a two-stream
+    net's ``model_rgb``/``model_flow``, a captioner's ``src_embed``), for
+    the eval forwards that follow; a train-mode forward drops the fold."""
+    from tennis_torch.models import DenseNet
+
+    for m in model.modules():
+        if isinstance(m, DenseNet):
+            m.fold()
+
+
 def make_eval_step(model, device: torch.device, pool: str | None = None,
                    feats: bool = False):
     """Move ``model`` (a ``FrameModel``, ``CNNRNN`` or ``TwoStreamModel``)
@@ -139,12 +151,10 @@ def make_eval_step(model, device: torch.device, pool: str | None = None,
     make the step anew (the trainer does before every val and test pass; a
     train-mode forward also drops the fold, so a stale one is never
     reused)."""
-    from tennis_torch.models import DenseNet, TemporalPooling
+    from tennis_torch.models import TemporalPooling
 
     model = model.to(device).eval()
-    for m in model.modules():  # a frame model's backbone, a clip CNN-RNN's
-        if isinstance(m, DenseNet):  # model.backbone, model_rgb/model_flow
-            m.fold()
+    fold_densenets(model)
     net = model if pool is None else TemporalPooling(
         model, pool=pool, feats=feats, wrap_head=True)
 

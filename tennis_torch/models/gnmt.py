@@ -1,5 +1,6 @@
 """GNMT-style encoder/decoder and NMT captioning model (counterpart of
-``tennis_tpu/models/gnmt.py``), features path, with ``masked_ce_loss``.
+``tennis_tpu/models/gnmt.py``), features and pixels paths, with
+``masked_ce_loss``.
 
 Structure (gnmt_v2):
 - encoder: ``num_bi_layers`` bidirectional GRU/LSTM layers, then
@@ -13,14 +14,25 @@ Structure (gnmt_v2):
 
 Parameter names follow the flax tree: ``encoder.rnn{i}[.fwd|.bwd]``,
 ``decoder.step.rnn{i}.{i2h,h2h}``, ``decoder.step.attention.query_proj``,
-``tgt_embed`` and ``tgt_proj``.
+``tgt_embed`` and ``tgt_proj``, and on the pixels path ``src_embed.*`` (the
+backbone's parameters and BN statistics).
 
 Dropout sits where the JAX package puts it: after each encoder layer, before
 the residual, and after each decoder layer from 1 on, before the residual.
 It acts only in ``train()`` mode, drawing its masks from the
 ``torch.Generator`` the forward is given (a train-mode forward with dropout
-and no generator raises); in ``eval()`` mode it is the identity. The pixels
-path (``src_embed``, a DenseNet) is not ported yet.
+and no generator raises); in ``eval()`` mode it is the identity.
+
+The pixels path (``src_embed``: a DenseNet or ResNet-v2 backbone, built in
+f32 by the driver as the JAX driver builds it) folds B and T of a
+``(B, T, H, W, C)`` source into one batch of frames. A uint8 source gets the
+device augment in ``train()`` mode (its draws from the ``augment``
+generator, kept apart from the dropout masks' generator) and the plain
+normalisation otherwise; a float source is the backbone's input as it is,
+as in the JAX package. In ``train()`` mode the backbone runs its
+train-mode forward (batch statistics over all B·T frames, padded steps
+included, and the running statistics updated); in ``eval()`` mode its eval
+forward, on the card every DenseNet dense layer in a dense-layer kernel.
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tennis_torch.data.transforms import device_augment, device_prepare
 from tennis_torch.ops.attention import LuongAttention
 from tennis_torch.ops.masking import sequence_mask
 from tennis_torch.ops.rnn import BiRNN, RNNLayer, dense, make_cell
@@ -180,14 +193,18 @@ class GNMTDecoder(nn.Module):
 
 
 class NMTModel(nn.Module):
-    """encoder -> decoder -> tgt_proj, with a token-embedding tgt_embed;
-    features path (the source is the encoder's input as it is)."""
+    """src_embed -> encoder -> decoder -> tgt_proj, with a token-embedding
+    tgt_embed. ``src_embed`` is None on the features path (the source is the
+    encoder's input as it is) or a backbone over frames on the pixels path
+    (the TimeDistributed CNN of the reference)."""
 
     def __init__(self, vocab_size: int, encoder: GNMTEncoder,
                  decoder: GNMTDecoder, embed_size: int = 100,
                  hidden_size: int = 128,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 src_embed: nn.Module | None = None):
         super().__init__()
+        self.src_embed = src_embed
         self.encoder = encoder
         self.decoder = decoder
         self.tgt_embed = nn.Embedding(vocab_size, embed_size)
@@ -196,8 +213,37 @@ class NMTModel(nn.Module):
                                           generator=generator)
         self.tgt_proj = dense(hidden_size, vocab_size, generator=generator)
 
-    def encode(self, src, valid_length=None, generator=None):
-        return self.encoder(src.float(), valid_length, generator)
+    def embed_src(self, src, augment: torch.Generator | None = None,
+                  src_grad: bool = True):
+        """The encoder's input: the source as f32 on the features path; on
+        the pixels path the backbone's features of every frame, (B, T, F).
+        A uint8 source is augmented with draws from ``augment`` in train
+        mode (a train-mode forward of uint8 frames without it raises) and
+        normalised otherwise. ``src_grad=False`` runs the backbone outside
+        autograd (a frozen backbone: nothing downstream reads its
+        gradients), still in train mode."""
+        if self.src_embed is None:
+            return src.float()
+        B, T = src.shape[:2]
+        flat = src.reshape((B * T,) + tuple(src.shape[2:]))
+        dtype = self.src_embed.dtype
+        if flat.dtype == torch.uint8:
+            if self.training:
+                if augment is None:
+                    raise ValueError("a train-mode forward of uint8 frames "
+                                     "needs a torch.Generator for its "
+                                     "augment draws")
+                flat = device_augment(flat, augment, dtype=dtype)
+            else:
+                flat = device_prepare(flat, dtype=dtype)
+        with torch.set_grad_enabled(src_grad and torch.is_grad_enabled()):
+            emb = self.src_embed(flat, train=self.training)
+        return emb.reshape(B, T, -1)
+
+    def encode(self, src, valid_length=None, generator=None, augment=None,
+               src_grad: bool = True):
+        return self.encoder(self.embed_src(src, augment, src_grad),
+                            valid_length, generator)
 
     def init_decoder_state(self, encoder_outputs, src_valid_length=None):
         mem_value, enc_states = encoder_outputs
@@ -210,11 +256,14 @@ class NMTModel(nn.Module):
         return self.tgt_proj(out[:, 0]), new_states
 
     def forward(self, src, tgt_tokens, src_valid_length=None,
-                tgt_valid_length=None, generator=None):
+                tgt_valid_length=None, generator=None, augment=None,
+                src_grad: bool = True):
         """Teacher-forced forward -> logits (B, T_tgt, V); ``generator``
-        draws the dropout masks of a train-mode forward."""
+        draws the dropout masks of a train-mode forward, ``augment`` the
+        device augment of uint8 frames (see :meth:`embed_src`)."""
         states = self.init_decoder_state(
-            self.encode(src, src_valid_length, generator), src_valid_length)
+            self.encode(src, src_valid_length, generator, augment, src_grad),
+            src_valid_length)
         outputs, _ = self.decoder(self.tgt_embed(tgt_tokens.long()), states,
                                   tgt_valid_length, generator)
         return self.tgt_proj(outputs)

@@ -6,18 +6,22 @@ Counterpart of ``tennis_tpu/ops/pallas/dense_block.py``. One launch of
 unpadded NHWC block-state buffer ``(B, H, W, C_block_final)`` and writes the
 layer's growth channels in place, so the concatenated state is never built.
 
-The kernel has three variants. ``csrc/dense_layer_persistent.cu`` runs one
-CTA per SM with the conv weights resident in shared memory and takes the
-maps of side 64 and more, and the 32^2 maps at batch 8;
+For a bf16 state the kernel has three variants.
+``csrc/dense_layer_persistent.cu`` runs one CTA per SM with the conv
+weights resident in shared memory and takes the maps of side 64 and more,
+and the 32^2 maps at batch 8;
 ``csrc/dense_layer_cluster.cu`` runs one thread-block cluster of 2, 4 or 8
 CTAs per 8x8 tile, splitting c_in and the bottleneck between them, and
 takes the other small maps; ``csrc/dense_layer.cu`` runs one CTA per 8x8
 tile and takes only a c_in past the persistent kernel's budget.
 ``dense_layer_route`` chooses the variant (and the cluster size) by map
-side, batch and c_in, as measured on the card.
+side, batch and c_in, as measured on the card. An f32 state (the
+pixels-path captioner's DenseNet ``src_embed``, built in f32 as the JAX
+driver builds it) goes to ``csrc/dense_layer_f32.cu``, one CTA per 8x8 tile
+on the f32 FMA units, which rounds nowhere between its f32 operands.
 
 The TPU kernel computes bottleneck 128 and growth 32 only (it asserts
-F == 128), and so do the three CUDA kernels. A layer of other widths
+F == 128), and so do the four CUDA kernels. A layer of other widths
 (DenseNet161: bottleneck 192, growth 48) is one that the JAX package runs
 through its flax module, i.e. XLA convolutions outside any Pallas kernel;
 its counterpart here is ``dense_layer_convs``, two ``F.conv2d`` calls, which
@@ -70,7 +74,8 @@ def layer_operands(bn1, conv1_weight, bn2, conv2_weight, dtype) -> LayerOperands
     """Fold one layer's BN parameters and lay its kernels out for the kernel.
 
     ``bn1``/``bn2`` are ``(scale, bias, mean, var)``; the conv weights are
-    torch OIHW. Unlike the TPU version nothing is padded: the kernel reads
+    torch OIHW, cast to ``dtype`` (bf16 for the bf16 kernels, f32 for the
+    f32 one). Unlike the TPU version nothing is padded: the kernel reads
     exactly channels ``[0, C_in)``.
     """
     inv1, sh1 = fold_bn(*bn1)
@@ -121,9 +126,13 @@ def dense_layer_convs(state: torch.Tensor, c_in: int,
     return state
 
 
-def _check_kernel_args(state, c_in, ops):
-    if state.dtype != torch.bfloat16:
-        raise TypeError(f"dense_layer kernel takes bf16 state, got {state.dtype}")
+def _check_kernel_args(state, c_in, ops, variant: str | None = None):
+    """Raise on what the kernel ``variant`` does not take: the bf16 kernels
+    (by default) a bf16 state and bf16 kernels, ``"f32"`` f32 throughout."""
+    dt = torch.float32 if variant == "f32" else torch.bfloat16
+    if state.dtype != dt:
+        raise TypeError(f"dense_layer {variant or 'bf16'} kernel takes "
+                        f"{dt} state, got {state.dtype}")
     if state.dim() != 4 or not state.is_contiguous():
         raise ValueError("dense_layer kernel takes a contiguous NHWC state")
     f, growth = ops.w1.shape[0], ops.w2.shape[2]
@@ -135,9 +144,9 @@ def _check_kernel_args(state, c_in, ops):
         raise ValueError(f"dense_layer kernel: c_in {c_in} must be a multiple "
                          f"of 32 and c_in + {growth} fit in {channels} channels")
     want = {"inv1": ((c_in,), torch.float32), "sh1": ((c_in,), torch.float32),
-            "w1": ((f, c_in), torch.bfloat16),
+            "w1": ((f, c_in), dt),
             "inv2": ((f,), torch.float32), "sh2": ((f,), torch.float32),
-            "w2": ((3, 3, growth, f), torch.bfloat16)}
+            "w2": ((3, 3, growth, f), dt)}
     for name, (shape, dtype) in want.items():
         t = getattr(ops, name)
         if tuple(t.shape) != shape or t.dtype != dtype:
@@ -236,17 +245,20 @@ def _tiles(batch: int, height: int, width: int) -> int:
 
 
 def dense_layer_route(batch: int, height: int, width: int, c_in: int,
-                      bottleneck: int = BOTTLENECK,
-                      growth: int = GROWTH) -> tuple[str, int | None]:
+                      bottleneck: int = BOTTLENECK, growth: int = GROWTH,
+                      dtype=torch.bfloat16) -> tuple[str, int | None]:
     """``(variant, cluster size)`` that ``dense_layer`` runs for a (batch,
-    height, width) state at ``c_in``; the size is None unless the variant is
-    ``"cluster"``. Widths other than (``BOTTLENECK``, ``GROWTH``), which no
-    TPU kernel computes, go to ``"convs"`` (:func:`dense_layer_convs`).
-    Maps of side >= 64 go to the persistent kernel; smaller ones follow
-    ``SMALL_MAP_ROUTES``. A c_in past the persistent kernel's budget goes
-    to the tile kernel."""
+    height, width) state of ``dtype`` at ``c_in``; the size is None unless
+    the variant is ``"cluster"``. Widths other than (``BOTTLENECK``,
+    ``GROWTH``), which no TPU kernel computes, go to ``"convs"``
+    (:func:`dense_layer_convs`) at any dtype. An f32 state goes to the f32
+    kernel, ``"f32"``. For bf16, maps of side >= 64 go to the persistent
+    kernel; smaller ones follow ``SMALL_MAP_ROUTES``. A c_in past the
+    persistent kernel's budget goes to the tile kernel."""
     if (bottleneck, growth) != (BOTTLENECK, GROWTH):
         return "convs", None
+    if dtype == torch.float32:
+        return "f32", None
     if min(height, width) >= PERSISTENT_MIN_SIDE:
         variant, cluster = "persistent", None
     else:
@@ -270,10 +282,11 @@ def dense_layer_variant(batch: int, height: int, width: int, c_in: int) -> str:
     return dense_layer_route(batch, height, width, c_in)[0]
 
 
-VARIANTS = ("persistent", "tile", "cluster")  # the dense-layer kernels
-ROUTES = (*VARIANTS, "convs")
+VARIANTS = ("persistent", "tile", "cluster")  # the bf16 dense-layer kernels
+KERNEL_VARIANTS = (*VARIANTS, "f32")  # every dense-layer kernel
+ROUTES = (*KERNEL_VARIANTS, "convs")
 _LIBRARIES = {"tile": "dense_layer", "persistent": "dense_layer_persistent",
-              "cluster": "dense_layer_cluster"}
+              "cluster": "dense_layer_cluster", "f32": "dense_layer_f32"}
 
 
 def _launcher(variant):
@@ -284,7 +297,7 @@ def _launcher(variant):
     if fn.argtypes is None:
         # ... bottleneck, growth, then max_ctas (persistent) or the cluster
         # size (cluster)
-        n_int = 7 if variant == "tile" else 8
+        n_int = 7 if variant in ("tile", "f32") else 8
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * n_int + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -302,12 +315,13 @@ def dense_layer(state: torch.Tensor, c_in: int, ops: LayerOperands,
     block state, writes its growth part to ``[c_in, c_in + G)``; returns
     ``state``. CUDA tensors go through the kernel that ``variant`` names
     (``"persistent"``, ``"tile"`` or ``"cluster"``, with ``cluster`` CTAs per
-    tile; by default :func:`dense_layer_route`'s choice, which is
+    tile, for a bf16 state; ``"f32"`` for an f32 one; by default
+    :func:`dense_layer_route`'s choice by the state's dtype, which is
     :func:`dense_layer_convs` for widths no kernel takes); CPU tensors
     through :func:`dense_layer_reference`, whatever the variant."""
-    if variant is not None and variant not in VARIANTS:
-        raise ValueError(f"dense_layer variant must be one of {VARIANTS}, "
-                         f"not {variant!r}")
+    if variant is not None and variant not in KERNEL_VARIANTS:
+        raise ValueError(f"dense_layer variant must be one of "
+                         f"{KERNEL_VARIANTS}, not {variant!r}")
     if state.device.type == "cpu":
         return dense_layer_reference(state, c_in, ops)
     if state.device.type != "cuda":
@@ -315,13 +329,13 @@ def dense_layer(state: torch.Tensor, c_in: int, ops: LayerOperands,
     B, H, W, C = state.shape
     if variant is None:
         variant, routed = dense_layer_route(B, H, W, c_in, ops.w1.shape[0],
-                                            ops.w2.shape[2])
+                                            ops.w2.shape[2], state.dtype)
         cluster = cluster or routed
         if variant == "convs":
             dense_layer_convs(state, c_in, ops)
             dense_layer.variant_launches["convs"] += 1
             return state
-    _check_kernel_args(state, c_in, ops)
+    _check_kernel_args(state, c_in, ops, variant)
     args = [state.data_ptr(), ops.inv1.data_ptr(), ops.sh1.data_ptr(),
             ops.w1.data_ptr(), ops.inv2.data_ptr(), ops.sh2.data_ptr(),
             ops.w2.data_ptr(), B, H, W, C, c_in, BOTTLENECK, GROWTH]

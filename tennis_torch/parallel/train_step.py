@@ -4,7 +4,8 @@ schedule, the softmax cross-entropy, and a step that runs the augment, the
 train-mode forward and backward and the update in place; for the captioner,
 Adam with global-norm clipping under an injected learning rate
 (:func:`adam_with_clip`) and the seq2seq step
-(:func:`make_seq2seq_train_step`).
+(:func:`make_seq2seq_train_step`), with the pixels path's backbone and its
+``--freeze_backbone``.
 
 The update is optax's ``chain(add_decayed_weights(wd), sgd(schedule,
 momentum))`` op for op, in f32: ``g += wd p`` on every trained parameter,
@@ -17,6 +18,15 @@ optimizer's update count. Under ``freeze_backbone`` every parameter with a
 no update, no weight decay and no trace (optax's ``multi_transform`` with
 ``set_to_zero``), while its BN still runs in train mode and moves its
 running statistics, as the JAX step does.
+
+The captioner's ``--freeze_backbone`` is the JAX driver's
+``chain(masked(set_to_zero, src_embed), clip, adam)``: the ``src_embed``
+gradients are zero before the global-norm clip, so they leave the norm,
+their Adam moments stay zero and their update is zero, while the counts
+advance. Here the frozen parameters are left out of the update (the same
+result, bit for bit: the parameters do not change) and their backward is
+not run; the backbone still runs its train-mode forward and moves its
+running statistics.
 """
 from __future__ import annotations
 
@@ -91,19 +101,21 @@ class TrainState:
     """The trained model, its optimizer (``SGD`` for the classifier,
     ``ClippedOptimizer`` for the captioner) and its state, and the step
     count. ``trained`` names the parameters the optimizer updates: all of
-    them, or under ``freeze_backbone`` those with no ``backbone`` component
-    in their name (the JAX driver's path rule)."""
+    them, or under ``freeze_backbone`` those with no ``frozen`` component
+    in their name (the JAX drivers' path rules: ``backbone`` for the
+    classifier, ``src_embed`` for the captioner)."""
     model: torch.nn.Module
     tx: object
     opt_state: object
     step: int = 0
     freeze_backbone: bool = False
+    frozen: str = "backbone"
 
     @property
     def trained(self) -> dict:
         return {n: p for n, p in self.model.named_parameters()
                 if not (self.freeze_backbone
-                        and "backbone" in n.split("."))}
+                        and self.frozen in n.split("."))}
 
 
 def create_train_state(model: torch.nn.Module, tx: SGD,
@@ -241,11 +253,14 @@ def adam_with_clip(clip: float = 5.0, optimizer: str = "adam"):
 
 
 def create_seq2seq_state(model: torch.nn.Module, tx: ClippedOptimizer,
-                         learning_rate: float) -> TrainState:
-    """A captioner's train state: every parameter trained, the optimizer
-    state at ``learning_rate``."""
-    state = TrainState(model, tx, None)
-    state.opt_state = tx.init(state.trained, learning_rate)
+                         learning_rate: float,
+                         freeze_backbone: bool = False) -> TrainState:
+    """A captioner's train state at ``learning_rate``: every parameter
+    trained, or under ``freeze_backbone`` all but ``src_embed``'s. The
+    optimizer state covers every parameter (a frozen one's Adam moments
+    stay zero), as the JAX driver's does."""
+    state = TrainState(model, tx, None, 0, freeze_backbone, "src_embed")
+    state.opt_state = tx.init(dict(model.named_parameters()), learning_rate)
     return state
 
 
@@ -253,9 +268,13 @@ def make_seq2seq_train_step(state: TrainState, loss_fn: Callable):
     """``step(src, tgt, src_vl, tgt_vl, seed) -> loss`` (detached, on the
     model's device) for the captioner: the train-mode forward of ``model(src,
     tgt[:, :-1], src_vl, tgt_vl - 1)`` with its dropout masks drawn from a
-    generator seeded with ``seed`` (a host draw, as the JAX step takes one),
-    ``loss_fn(logits, tgt[:, 1:], tgt_vl - 1)``, the gradients of every
-    parameter, and the update in place; ``state.step`` counts the steps."""
+    generator seeded with ``seed`` (a host draw, as the JAX step takes one)
+    and, for uint8 frames, its augment draws from another generator seeded
+    from ``seed`` (the JAX step splits its key into a dropout and an augment
+    stream), ``loss_fn(logits, tgt[:, 1:], tgt_vl - 1)``, the gradients of
+    the trained parameters (under ``freeze_backbone`` the backbone's
+    backward is not run), and the update in place; the backbone's running
+    statistics move in the forward; ``state.step`` counts the steps."""
     model = state.model
 
     def step(src, tgt, src_vl, tgt_vl, seed) -> torch.Tensor:
@@ -265,8 +284,11 @@ def make_seq2seq_train_step(state: TrainState, loss_fn: Callable):
                                for x in (tgt, src_vl, tgt_vl))
         model.train()
         generator = torch.Generator(device=dev).manual_seed(int(seed))
+        augment = step_generator(int(seed), 1, dev) \
+            if src.dtype == torch.uint8 else None
         logits = model(src, tgt[:, :-1], src_vl, tgt_vl - 1,
-                       generator=generator)
+                       generator=generator, augment=augment,
+                       src_grad=not state.freeze_backbone)
         loss = loss_fn(logits, tgt[:, 1:], tgt_vl - 1)
         trained = state.trained
         grads = torch.autograd.grad(loss, list(trained.values()))

@@ -364,6 +364,20 @@ def _key_paths(tree: dict, prefix=()) -> set:
     return out
 
 
+def read_donor(from_id: str):
+    """``(path, epoch, tree)`` of the newest epoch file of the vision
+    experiment ``from_id`` (the donor of ``--backbone_from_id``), or None
+    when it has none; ``tree`` as ``load_raw`` reads it."""
+    from tennis_torch.utils import checkpoint as ckpt
+    from tennis_torch.utils.experiments import experiment_dir
+
+    latest = ckpt.latest_epoch(experiment_dir("vision", from_id))
+    if latest is None:
+        return None
+    path = ckpt.epoch_path(experiment_dir("vision", from_id), latest)
+    return path, latest, ckpt.load_raw(path)
+
+
 def _load_backbone_from(model, from_id: str):
     """Transplant the ``backbone`` parameters (not its BN statistics, as in
     the JAX driver) of ``from_id``'s newest epoch. The JAX driver restores
@@ -373,17 +387,15 @@ def _load_backbone_from(model, from_id: str):
     raises on the transplant: here both raise ``ValueError`` naming the
     mismatch."""
     from tennis_torch.bridge import from_flax, to_flax
-    from tennis_torch.utils import checkpoint as ckpt
     from tennis_torch.utils.experiments import experiment_dir
 
-    src_dir = experiment_dir("vision", from_id)
-    latest = ckpt.latest_epoch(src_dir)
-    if latest is None:
-        log.warning("no checkpoints in %s; backbone not transplanted", src_dir)
+    donor = read_donor(from_id)
+    if donor is None:
+        log.warning("no checkpoints in %s; backbone not transplanted",
+                    experiment_dir("vision", from_id))
         return
+    path, latest, raw = donor
     log.info("transplanting backbone from %s epoch %d", from_id, latest)
-    path = ckpt.epoch_path(src_dir, latest)
-    raw = ckpt.load_raw(path)
     mine = to_flax(model)
     for col in ("params", "batch_stats"):
         want, got = _key_paths(mine[col]), _key_paths(raw.get(col, {}))

@@ -1,5 +1,5 @@
 """Captioning trainer (counterpart of ``tennis_tpu/train_gnmt.py``),
-features path.
+features and pixels paths.
 
 The flags are the JAX trainer's, with the same names and defaults, parsed
 with argparse (``parse_args``; the serving loader reads a checkpoint's
@@ -7,7 +7,11 @@ with argparse (``parse_args``; the serving loader reads a checkpoint's
 default; asking for it without a GPU raises).
 
 ``train`` runs the JAX loop: the captions-mode ``TennisSet`` splits over
-``--feats_model`` features (the train split's vocabulary), three bucketed
+``--feats_model`` features or, without it, over frames (the pixels path:
+the train split's frames through ``train_geometry`` from a
+``ThreadLocalRng(--seed)``, val's and test's through ``test_geometry``
+decoded at ``--data_shape + 32``, ``--frames_cache`` on every split; the
+train split's vocabulary in each), three bucketed
 loaders (val and test bucketed on caption length, time axes padded to
 multiples of 8) through the pinned prefetch, the ``tgt_embed`` init from
 ``<root>/<--emb_file>``, Adam with global-norm clipping at an injected
@@ -23,12 +27,23 @@ new best BLEU-4. The files are the JAX package's, so either package resumes
 or evaluates the other's. The train step runs the GRU through a plain
 differentiable recurrence, as the JAX package trains through its scan.
 
-The pixels path (a DenseNet ``src_embed``: ``--pretrained_npz``,
-``--freeze_backbone``, ``--backbone_from_id``) and ``--num_devices > 1``
-raise ``NotImplementedError``.
+The pixels path builds ``--backbone`` (a DenseNet, with ``--remat``, or a
+ResNet-v2) in f32 as ``src_embed``, as the JAX driver does: its train step
+augments the uint8 frames on the device and runs the backbone in train mode
+(plain torch ops and cuDNN convolutions, which PyTorch runs in TF32 on the
+card unless ``torch.backends.cudnn.allow_tf32`` is turned off; the
+matrix products stay f32); its eval forward in the decodes runs every
+DenseNet dense layer through the f32 dense-layer kernel on the card.
+``--backbone_from_id`` grafts a vision experiment's newest ``backbone``
+(parameters and statistics) onto ``src_embed``, checked for structure;
+``--freeze_backbone`` leaves ``src_embed`` out of the clip and the update.
+``--pretrained_npz`` and ``--num_devices > 1`` raise
+``NotImplementedError``.
 
 Run: ``python -m tennis_torch.train_gnmt --model_id 0102 --feats_model 0006
---num_hidden 256`` (``--device cpu`` off the GPU).
+--num_hidden 256``, or on the pixels path ``--backbone DenseNet121
+--backbone_from_id 0006 --freeze_backbone --remat block`` without
+``--feats_model`` (``--device cpu`` off the GPU).
 """
 from __future__ import annotations
 
@@ -110,26 +125,36 @@ def parse_args(argv=None) -> argparse.Namespace:
     return parser().parse_args(argv)
 
 
-def build_model(args: argparse.Namespace, vocab_size: int, feat_dim: int,
+def build_model(args: argparse.Namespace, vocab_size: int,
+                feat_dim: int | None = None,
                 generator: torch.Generator | None = None):
-    """The features-path ``NMTModel`` the flags describe (f32, CPU), with
-    ``--dropout`` in its train mode."""
+    """The ``NMTModel`` the flags describe (f32, CPU), with ``--dropout`` in
+    its train mode: over ``feat_dim``-d features with ``--feats_model``,
+    else with an f32 ``--backbone`` as ``src_embed`` (``--remat`` for a
+    DenseNet), whose feature size sets the encoder's input."""
+    from tennis_torch.models import backbone_feature_dim, get_backbone
     from tennis_torch.models.gnmt import NMTModel, get_gnmt_encoder_decoder
 
+    src_embed = None
     if not args.feats_model:
-        raise ValueError("only the features-path captioner is ported "
-                         "(--feats_model=<vision exp id>)")
+        src_embed = get_backbone(
+            args.backbone, dtype=torch.float32,
+            remat=None if args.remat == "none" else args.remat,
+            generator=generator)
+        feat_dim = backbone_feature_dim(args.backbone, args.data_shape)
     encoder, decoder = get_gnmt_encoder_decoder(
         cell_type=args.cell_type, num_layers=args.num_layers,
         num_bi_layers=args.num_bi_layers, hidden_size=args.num_hidden,
         input_size=feat_dim, embed_size=args.emb_size, generator=generator,
         dropout=args.dropout)
     return NMTModel(vocab_size, encoder, decoder, embed_size=args.emb_size,
-                    hidden_size=args.num_hidden, generator=generator)
+                    hidden_size=args.num_hidden, generator=generator,
+                    src_embed=src_embed)
 
 
 def refuse_unported(args: argparse.Namespace):
-    """Raise for what the port does not train yet."""
+    """Raise for what the port does not train yet, and for the flag sets
+    the JAX driver refuses."""
     if args.num_devices > 1:
         raise NotImplementedError("--num_devices > 1 is not ported yet "
                                   "(ROADMAP.md slice 9)")
@@ -137,26 +162,80 @@ def refuse_unported(args: argparse.Namespace):
         raise ValueError(
             "--pretrained_npz needs the pixels path; --feats_model consumes "
             "precomputed features and has no CNN src_embed to initialize")
-    if not args.feats_model:
+    if args.pretrained_npz:
         raise NotImplementedError(
-            "the pixels-path captioner (a DenseNet src_embed over frames, "
-            "--pretrained_npz, --freeze_backbone, --backbone_from_id) is not "
-            "ported yet (ROADMAP.md slice 6): pass --feats_model=<vision "
-            "exp id>")
+            "--pretrained_npz waits for the weight converter, which is not "
+            "ported yet (ROADMAP.md slice 10)")
 
 
 def make_datasets(args):
     """(train, val, test) captions-mode splits over ``--feats_model``
-    features; val and test index into the train split's vocabulary, keep
-    whole captions and return sample indices."""
+    features or, on the pixels path, over frames: the train split's through
+    ``train_geometry`` (a ``ThreadLocalRng(--seed)``: the loader's workers
+    are threads), val's and test's through ``test_geometry``, decoded at
+    ``--data_shape + 32``; ``--frames_cache`` on every split. Val and test
+    index into the train split's vocabulary, keep whole captions and
+    return sample indices."""
+    from tennis_torch.data import transforms as T
     from tennis_torch.data.tennis_set import TennisSet
 
+    train_transform = test_transform = None
+    if not args.feats_model:
+        rng = T.ThreadLocalRng(args.seed)
+
+        def train_transform(img):
+            return T.train_geometry(img, args.data_shape, rng.get())
+
+        def test_transform(img):
+            return T.test_geometry(img, args.data_shape)
+
     common = dict(root=args.root, captions=True, every=args.every,
-                  feats_model=args.feats_model or None)
-    train = TennisSet(split="train", max_cap_len=args.tgt_max_len, **common)
-    val = TennisSet(split="val", vocab=train.vocab, inference=True, **common)
-    test = TennisSet(split="test", vocab=train.vocab, inference=True, **common)
+                  feats_model=args.feats_model or None,
+                  frames_cache=args.frames_cache or None)
+    decode_short = args.data_shape + 32
+    train = TennisSet(split="train", max_cap_len=args.tgt_max_len,
+                      transform=train_transform, **common)
+    val = TennisSet(split="val", vocab=train.vocab, inference=True,
+                    transform=test_transform, decode_short=decode_short,
+                    **common)
+    test = TennisSet(split="test", vocab=train.vocab, inference=True,
+                     transform=test_transform, decode_short=decode_short,
+                     **common)
     return train, val, test
+
+
+def transplant_backbone(model, args):
+    """Graft the ``backbone`` parameters and BN statistics of the newest
+    epoch of the vision experiment ``--backbone_from_id`` onto ``src_embed``
+    (the JAX driver's ``_transplant_backbone``). A donor without an epoch
+    raises ``FileNotFoundError``, one whose trees differ from
+    ``src_embed``'s ``ValueError``."""
+    from tennis_torch.bridge import from_flax, to_flax
+    from tennis_torch.train import _key_paths, read_donor
+    from tennis_torch.utils.experiments import experiment_dir
+
+    donor = read_donor(args.backbone_from_id)
+    if donor is None:
+        raise FileNotFoundError(
+            f"no checkpoints under "
+            f"{experiment_dir('vision', args.backbone_from_id)}")
+    _, latest, raw = donor
+    mine = to_flax(model.src_embed)
+    params = raw.get("params", {}).get("backbone", {})
+    stats = raw.get("batch_stats", {}).get("backbone", {})
+    for what, got in (("params", params), ("batch_stats", stats)):
+        if what == "batch_stats" and not got:
+            continue  # the JAX driver grafts statistics only when it has any
+        if _key_paths(got) != _key_paths(mine[what]):
+            raise ValueError(
+                f"backbone {what} from experiment {args.backbone_from_id} do "
+                f"not match this --backbone={args.backbone}: "
+                f"{sorted(_key_paths(got) ^ _key_paths(mine[what]))[:4]}")
+    model.src_embed.load_state_dict(
+        from_flax({"params": params, "batch_stats": stats}),
+        strict=bool(stats))
+    log.info("transplanted backbone from %s epoch %d", args.backbone_from_id,
+             latest)
 
 
 def make_loader(args, dataset, split: str):
@@ -175,6 +254,7 @@ def make_loader(args, dataset, split: str):
 
 
 def feature_dim(dataset) -> int:
+    """The feature size of a features-path split."""
     return int(np.asarray(dataset[0][0]).shape[-1])
 
 
@@ -215,7 +295,7 @@ def train(args: argparse.Namespace, datasets=None):
     from tennis_torch.bridge import state_from_flax, state_to_flax
     from tennis_torch.data.loader import prefetch_to_device
     from tennis_torch.data.vocab import load_embeddings
-    from tennis_torch.inference import resolve_device
+    from tennis_torch.inference import fold_densenets, resolve_device
     from tennis_torch.metrics.nlg import nlg_metric_suite
     from tennis_torch.models.gnmt import masked_ce_loss
     from tennis_torch.parallel.train_step import adam_with_clip, \
@@ -245,9 +325,12 @@ def train(args: argparse.Namespace, datasets=None):
     if len(loaders["train"]) == 0:
         raise SystemExit("train loader produced zero batches: add training "
                          "captions")
-    model = build_model(args, len(vocab), feature_dim(data_train),
+    model = build_model(args, len(vocab),
+                        feature_dim(data_train) if args.feats_model else None,
                         generator=torch.Generator().manual_seed(args.seed))
     log.info("params: %.2fM", ckpt.param_count(model) / 1e6)
+    if not args.feats_model and args.backbone_from_id:
+        transplant_backbone(model, args)
 
     emb_path = os.path.join(args.root, args.emb_file) if args.emb_file else None
     if emb_path and os.path.exists(emb_path):
@@ -262,7 +345,8 @@ def train(args: argparse.Namespace, datasets=None):
 
     lr = args.lr
     tx = adam_with_clip(args.clip, args.optimizer)
-    state = create_seq2seq_state(model, tx, lr)
+    state = create_seq2seq_state(
+        model, tx, lr, args.freeze_backbone and not args.feats_model)
     start_epoch = ckpt.resume_state(exp_dir,
                                     lambda tree: state_from_flax(state, tree))
     if start_epoch > 0:
@@ -278,6 +362,7 @@ def train(args: argparse.Namespace, datasets=None):
         """(mean teacher-forced loss, NLG suite, hypotheses in dataset
         order) of a split."""
         model.eval()
+        fold_densenets(model)
         losses = []
 
         def loss_of(src, tgt, src_vl, tgt_vl):

@@ -46,12 +46,15 @@ class BeamSearchTranslator:
                            self._alpha, self._K)
 
     def translate(self, src, src_valid_length):
-        """src (B, T, D) array-like or tensor, src_valid_length (B,) (float
-        lengths are truncated to int32, as the JAX translator casts them);
-        returns numpy (samples (B, K, L) int32, scores (B, K), valid_length
-        (B, K))."""
+        """src (B, T, D) features or (B, T, H, W, C) uint8 frames,
+        array-like or tensor (features as f32, frames as they are),
+        src_valid_length (B,) (float lengths are truncated to int32, as the
+        JAX translator casts them); returns numpy (samples (B, K, L) int32,
+        scores (B, K), valid_length (B, K))."""
         dev = self.device
-        src = torch.as_tensor(src, dtype=torch.float32, device=dev)
+        src = torch.as_tensor(src, device=dev)
+        if src.dtype != torch.uint8:
+            src = src.float()
         vl = torch.as_tensor(src_valid_length, device=dev).to(torch.int32)
         samples, scores, lengths = self.translate_tensors(src, vl)
         return samples.cpu().numpy(), scores.cpu().numpy(), lengths.cpu().numpy()

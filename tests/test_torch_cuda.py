@@ -60,7 +60,9 @@ def test_kernel_matches_plain(dev, batch, h, w, c_in, c_final):
 
 def test_kernel_refuses_what_it_does_not_take(dev):
     state, ops = _layer(dev, 1, 8, 8, 64, 128)
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError):  # a bf16 kernel takes no f32 state
+        db.dense_layer(state.float(), 64, ops, "tile")
+    with pytest.raises(ValueError):  # the f32 kernel takes no bf16 kernels
         db.dense_layer(state.float(), 64, ops)
     with pytest.raises(ValueError):
         db.dense_layer(state, 64, ops._replace(w1=ops.w1.cpu()))

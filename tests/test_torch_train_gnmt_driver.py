@@ -250,8 +250,9 @@ def test_resume_keeps_decay_chain(env):
 
 def test_refusals(env):
     root, _ = env
-    with pytest.raises(NotImplementedError, match="pixels-path"):
-        train_gnmt.main([f"--root={root}", "--device=cpu"])
+    with pytest.raises(NotImplementedError, match="slice 10"):
+        train_gnmt.main([f"--root={root}", "--device=cpu",
+                         "--pretrained_npz=x.npz"])
     with pytest.raises(NotImplementedError, match="num_devices"):
         train_gnmt.main([f"--root={root}", "--device=cpu", "--feats_model=tf",
                          "--num_devices=2"])
