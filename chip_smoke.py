@@ -175,15 +175,19 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    batch 8 over in-memory clip splits (32 train, 21 val and test), a resume
    and ``evaluate``, with ``[resnet_driver]``'s gates;
 7d. the pixels-path captioner and SkipGram (last). ``[kernel_f32]``: the
-   f32 dense-layer kernel against ``dense_layer_reference`` in f32 at the
+   f32 dense-layer kernel (``"f32"``, 3xTF32 on the tensor cores) against
+   ``dense_layer_reference`` in f32 and against its function in f64 at the
    first and last layer shape of each DenseNet121-512 block at batch 2, a
-   ragged 7x7 map and batch 1 (gate: max |kernel - plain| within 1e-4 of
-   max |plain|), each shape's device time beside the plain version's and
-   cuDNN's two convolutions in f32 (TF32 off), and ``[stack_f32]``: the 58
-   layers of one forward at the 64 frames of a decode batch, block by
-   block. ``[skipgram]``: ``train_embeddings.train`` for an
-   epoch over a seeded corpus of 250 words and ~10k sentences with
-   ``--add_extra`` (pairs/s as the log's "wps", the loss over the epoch;
+   ragged 7x7 map and batch 1 (gates: max |kernel - plain| within 1e-4 of
+   max |plain|, the other channels untouched, max |kernel - f64| within
+   1e-5 of max |f64|; the same measure logged for the plain version), the
+   kernel's device time beside the plain version's and cuDNN's two
+   convolutions in f32 (TF32 off), the 3xTF32 bound (three TF32 products a
+   multiply-add at 495 TFLOP/s); and ``[stack_f32]``: the 58 layers of one
+   forward at batch 2 and at the 64 frames of a decode batch, block by
+   block, against the plain version, the same figures. ``[skipgram]``:
+   ``train_embeddings.train`` for an epoch over a seeded corpus of 250
+   words and ~10k sentences with ``--add_extra`` (pairs/s as the log's "wps", the loss over the epoch;
    gates: finite and falling); its ``embeddings-ex.txt`` is the
    ``--emb_file`` of ``[pixcap_driver]``. ``[pixcap_train]``: the 0102
    widths with an f32 DenseNet121 ``src_embed`` at 512^2, ``--remat
@@ -198,9 +202,9 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    ``train_gnmt.train`` for an epoch over in-memory uint8 splits with a
    donor DenseNet121 epoch in the classifier trainer's layout,
    ``--backbone_from_id``, ``--freeze_backbone``, its val and test decodes,
-   then ``evaluate_gnmt``: 58 f32 dense launches an eval forward, 3 GRU
-   launches a decode batch, the first decode batch's encoder output within
-   1e-4 of the plain-version forward, the epoch files read back bit for
+   then ``evaluate_gnmt``: 58 launches of the f32 kernel an eval forward,
+   3 GRU launches a decode batch, the first decode batch's encoder output
+   within 1e-4 of the plain-version forward, the epoch files read back bit for
    bit; decode ms a batch and a step, a decode's idle share;
 8. ``{"kernels": [...]}``, then the card line, then ``{"ok": true, ...}``.
 
@@ -229,6 +233,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12    # H100 SXM f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 on the tensor cores
 KERNEL_TOL = 1e-2         # max |kernel - plain| / max |plain|, bf16 state
 LOGIT_TOL = 5e-2          # same measure on batch-8 logits after 120 layers
 GRU_TOL = 1e-4            # max |kernel - plain|, f32, another summation order
@@ -238,13 +243,14 @@ BATCH = 8
 N_REQUESTS = 16
 SEED = 0
 KERNELS = ["dense_layer", "dense_layer_persistent", "dense_layer_cluster",
-           "dense_layer_f32", "gru_recurrence", "gru_recurrence_async"]
+           "dense_layer_f32_tc", "gru_recurrence",
+           "gru_recurrence_async"]
 # profiler name of each dense-layer kernel variant (no name holds another);
 # the cluster kernel's name also carries its cluster size, <2>, <4> or <8>
 DENSE_KERNELS = {"persistent": "dense_layer_persistent_kernel",
                  "tile": "dense_layer_kernel",
                  "cluster": "dense_layer_cluster_kernel",
-                 "f32": "dense_layer_f32_kernel"}
+                 "f32": "dense_layer_f32_tc_kernel"}
 # profiler name of each GRU kernel variant (neither name holds the other)
 GRU_KERNELS = {"barrier": "gru_recurrence_kernel",
                "async": "gru_recurrence_async_kernel"}
@@ -371,8 +377,10 @@ R21D_DRIVER_BATCH = 8
 # comparison and the repeated batch at 1 point x PIXCAP_SMALL frames; the
 # driver over PIXCAP_POINTS in-memory points drawn from PIXCAP_POOL frames.
 # F32_KERNEL_TOL: max |kernel - plain| / max |plain|, f32 sums in another
-# order. PIXCAP_ENC_TOL: the same measure on an encoder output after 58 f32
-# layers and the GRUs.
+# order. F32_F64_TOL: max |kernel - f64| / max |f64|, the f64 side the
+# plain version's function in f64 (plain f32 and 3xTF32 lie ~1e-6 off, one
+# TF32 product a pair ~3e-4). PIXCAP_ENC_TOL: the same measure as
+# F32_KERNEL_TOL on an encoder output after 58 f32 layers and the GRUs.
 PIXCAP_ARGV = ["--num_hidden=256", "--num_layers=2", "--num_bi_layers=1",
                "--emb_size=100", "--cell_type=gru", "--backbone=DenseNet121",
                f"--data_shape={DATA_SHAPE}", "--remat=block",
@@ -382,7 +390,7 @@ PIXCAP_WARMUP, PIXCAP_TIMED = 3, 10
 PIXCAP_POOL = 64
 PIXCAP_POINTS = {"train": 8, "val": 4, "test": 4}
 PIXCAP_F64_LOSS_TOL, PIXCAP_F64_STATS_TOL = 1e-4, 1e-3
-F32_KERNEL_TOL, PIXCAP_ENC_TOL = 1e-4, 1e-4
+F32_KERNEL_TOL, F32_F64_TOL, PIXCAP_ENC_TOL = 1e-4, 1e-5, 1e-4
 # (name, batch, side, c_in, c_final): first and last layer of each
 # DenseNet121-512 block at batch 2 (a decode batch's frames are B x T), a
 # ragged 7x7 map (DenseNet at 224^2), batch 1
@@ -394,7 +402,9 @@ F32_LAYER_CASES = [
     ("ragged_7x7", 2, 7, 512, 1024), ("batch1", 1, 128, 64, 256),
 ]
 # the 58-layer stack at the frames of one decode batch of [pixcap_driver]
+# (the kernels line's figures) and at F32_LAYER_CASES' batch
 F32_STACK_BATCH = PIXCAP_BATCH * PIXCAP_FRAMES
+F32_STACK_BATCHES = (2, F32_STACK_BATCH)
 # SkipGram (train_embeddings defaults, one epoch): a 250-word vocabulary
 # (the captioner's words, so the file fills its tgt_embed) over the
 # captions file and an extra corpus of SKIPGRAM_EXTRA sentences (the
@@ -3602,11 +3612,18 @@ def r21d_driver_phase(dev):
         raise SystemExit("the R(2+1)D driver failed its gates")
 
 
+def f32_bound(flops, nbytes):
+    """(ms, bound by) of f32 work on the tensor cores as 3xTF32: three TF32
+    products a multiply-add at PEAK_TF32_FLOPS."""
+    return bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+
+
 def kernel_f32_phase(dev):
-    """The f32 dense-layer kernel against the plain version in f32 at
-    F32_LAYER_CASES, then the 58 layers of one DenseNet121-512 forward at
-    F32_STACK_BATCH block by block (kernel, plain, cuDNN); returns the max
-    |kernel - plain| and the stack's figures for the kernels line."""
+    """The f32 dense-layer kernel (``"f32"``, 3xTF32 on the tensor cores)
+    against the plain version in f32 and in f64 at F32_LAYER_CASES, then the
+    58 layers of one DenseNet121-512 forward at each of F32_STACK_BATCHES
+    block by block (kernel, plain, cuDNN). Returns the max |kernel - plain|
+    and the stacks' figures by batch."""
     from tennis_torch.ops import dense_block as db
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 40)
@@ -3616,6 +3633,9 @@ def kernel_f32_phase(dev):
         state, ops = random_layer(gen, batch, side, c_in, c_final, dev,
                                   torch.float32)
         want = db.dense_layer_reference(state.clone(), c_in, ops)
+        # the plain version in f64 on the same operands
+        want64 = db.dense_layer_reference(state.double(), c_in,
+                                          ops)[..., c_in:c_in + 32]
         routed = db.dense_layer_route(batch, side, side, c_in,
                                       dtype=torch.float32)
         before = db.dense_layer.variant_launches["f32"]
@@ -3623,17 +3643,24 @@ def kernel_f32_phase(dev):
         torch.cuda.synchronize()
         abs_err, rel, untouched, ok = check_layer(state, got, want, c_in,
                                                   F32_KERNEL_TOL)
-        ok = ok and routed == ("f32", None) and \
+
+        def rel_f64(t):
+            return ((t[..., c_in:c_in + 32].double() - want64).abs().max()
+                    / want64.abs().max()).item()
+
+        rel64 = rel_f64(got)
+        ok = ok and routed == ("f32", None) and rel64 <= F32_F64_TOL and \
             db.dense_layer.variant_launches["f32"] == before + 1
         worst = max(worst, abs_err)
         lib = library_convs(state, c_in, ops)
-        b_ms, b_by = bound(*layer_work(batch, side, c_in, elem=4),
-                           PEAK_F32_FLOPS)
+        b_ms, b_by = f32_bound(*layer_work(batch, side, c_in, elem=4))
         device_ms = kernel_device(lambda: db.dense_layer(state, c_in, ops),
                                   name, launches=1)[0]
         log("kernel_f32", case=case, shape=[batch, side, side, c_final],
             c_in=c_in, route=routed[0], tol=F32_KERNEL_TOL,
-            max_abs_err=abs_err, rel_err=rel, untouched=untouched,
+            f64_tol=F32_F64_TOL, max_abs_err=abs_err, rel_err=rel,
+            rel_err_f64=rel64, plain_rel_err_f64=rel_f64(want),
+            untouched=untouched,
             ms=time_ms(lambda: db.dense_layer(state, c_in, ops)),
             device_ms=device_ms,
             plain_ms=time_ms(lambda: db.dense_layer_reference(state, c_in,
@@ -3643,16 +3670,25 @@ def kernel_f32_phase(dev):
             roofline_share=b_ms / device_ms, ok=ok)
         if not ok:
             raise SystemExit(f"the f32 dense_layer kernel disagrees with its "
-                             f"plain version at {case}")
-        del state, ops, want, got
+                             f"plain version or f64 at {case}")
+        del state, ops, want, want64, got
+    return worst, {batch: stack_f32(dev, gen, batch)
+                   for batch in F32_STACK_BATCHES}
 
-    # the 58 layers of one forward, block by block, each block's layers in
-    # sequence over one state as the forward runs them
+
+def stack_f32(dev, gen, batch):
+    """The 58 layers of one DenseNet121-512 forward at ``batch`` frames,
+    block by block, each block's layers in sequence over one state as the
+    forward runs them: the kernel against the plain version, its device
+    ms, the plain version's and cuDNN's ms."""
+    from tennis_torch.ops import dense_block as db
+
     rows = []
+    name = DENSE_KERNELS["f32"]
     side, channels = DATA_SHAPE // 4, 64
     for block, num_layers in enumerate((6, 12, 24, 16)):
         c_final = channels + 32 * num_layers
-        state = _rand(gen, dev, F32_STACK_BATCH, side, side, c_final)
+        state = _rand(gen, dev, batch, side, side, c_final)
         layers = [(channels + 32 * j, random_ops(gen, channels + 32 * j, dev,
                                                  torch.float32))
                   for j in range(num_layers)]
@@ -3667,8 +3703,7 @@ def kernel_f32_phase(dev):
         torch.cuda.synchronize()
         rel = ((got - want).abs().max() / want.abs().max()).item()
         libs = [library_convs(state, c_in, ops) for c_in, ops in layers]
-        work = [layer_work(F32_STACK_BATCH, side, c_in, elem=4)
-                for c_in, _ in layers]
+        work = [layer_work(batch, side, c_in, elem=4) for c_in, _ in layers]
         rows.append({
             "block": block, "side": side, "layers": num_layers,
             "rel_err": rel,
@@ -3683,20 +3718,19 @@ def kernel_f32_phase(dev):
         del state, layers, got, want, libs
         channels, side = c_final // 2, side // 2
     for r in rows:
-        r["bound_ms"], r["bound_by"] = bound(r["flops"], r["bytes"],
-                                             PEAK_F32_FLOPS)
+        r["bound_ms"], r["bound_by"] = f32_bound(r["flops"], r["bytes"])
     stack = {k: sum(r[k] for r in rows) for k in
              ("ms", "device_ms", "plain_ms", "library_ms", "flops", "bytes")}
-    stack["bound_ms"], stack["bound_by"] = bound(stack["flops"],
-                                                 stack["bytes"], PEAK_F32_FLOPS)
+    stack["bound_ms"], stack["bound_by"] = f32_bound(stack["flops"],
+                                                     stack["bytes"])
     ok = all(r["rel_err"] <= F32_KERNEL_TOL for r in rows)
-    log("stack_f32", batch=F32_STACK_BATCH, blocks=rows, **stack,
+    log("stack_f32", batch=batch, blocks=rows, **stack,
         roofline_share=stack["bound_ms"] / stack["device_ms"],
         tol=F32_KERNEL_TOL, ok=ok)
     if not ok:
         raise SystemExit("the f32 dense_layer kernel's stack disagrees with "
                          "its plain version")
-    return worst, stack
+    return stack
 
 
 def skipgram_phase(root):
@@ -4161,12 +4195,13 @@ def pixcap_driver_phase(dev, vocab, root):
     return dense_counts
 
 
-def dense_f32_entry(worst_abs, stack, launches):
+def dense_f32_entry(worst_abs, stacks, launches):
     """The kernels-line entry of the f32 dense-layer kernel over the 58
     layers of one DenseNet121-512 forward at F32_STACK_BATCH."""
+    stack = stacks[F32_STACK_BATCH]
     return {
-        "name": "dense_layer_f32", "route": "cuda",
-        "source": "tennis_torch/csrc/dense_layer_f32.cu",
+        "name": "dense_layer_f32_tc", "route": "cuda",
+        "source": "tennis_torch/csrc/dense_layer_f32_tc.cu",
         "replaces": "tennis_tpu/ops/pallas/dense_block.py:92",
         "launches": launches, "max_abs_err": worst_abs,
         "ms": stack["ms"], "device_ms": stack["device_ms"],
@@ -4174,10 +4209,11 @@ def dense_f32_entry(worst_abs, stack, launches):
         "bound_by": stack["bound_by"], "library_ms": stack["library_ms"],
         "work": f"the 58 dense layers of an f32 DenseNet121 at "
                 f"{DATA_SHAPE}^2, batch {F32_STACK_BATCH} (the pixels-path "
-                f"captioner's src_embed), f32 peak 67 TFLOP/s; launches count "
-                f"the eval forwards of [pixcap_driver] (its val and test "
-                f"decodes and losses, and evaluate_gnmt); library_ms is "
-                f"cuDNN's two convolutions a layer in f32, TF32 off",
+                f"captioner's src_embed); bound_ms is three TF32 products a "
+                f"multiply-add at 495 TFLOP/s; launches count the eval "
+                f"forwards of [pixcap_driver] (its val and test decodes and "
+                f"losses, and evaluate_gnmt); library_ms is cuDNN's two "
+                f"convolutions a layer in f32, TF32 off",
     }
 
 
@@ -4294,7 +4330,7 @@ def main() -> int:
 
     build_phase()
     max_abs = kernel_phase()
-    f32_abs, f32_stack = kernel_f32_phase(torch.device("cuda"))
+    f32_abs, f32_stacks = kernel_f32_phase(torch.device("cuda"))
     agree = route_phase()
     stack = stack_phase()
     stack64_phase()
@@ -4341,7 +4377,7 @@ def main() -> int:
                     max_abs),
         dense_entry("dense_layer_cluster", "cluster", stack, launches,
                     max_abs),
-        dense_f32_entry(f32_abs, f32_stack, f32_counts["f32"]),
+        dense_f32_entry(f32_abs, f32_stacks, f32_counts["f32"]),
         gru_entry("gru_recurrence", "barrier", gru_rows, gru_launches, gru_abs),
         gru_entry("gru_recurrence_async", "async", gru_rows, gru_launches,
                   gru_abs)]}))

@@ -17,8 +17,10 @@ tile and takes only a c_in past the persistent kernel's budget.
 ``dense_layer_route`` chooses the variant (and the cluster size) by map
 side, batch and c_in, as measured on the card. An f32 state (the
 pixels-path captioner's DenseNet ``src_embed``, built in f32 as the JAX
-driver builds it) goes to ``csrc/dense_layer_f32.cu``, one CTA per 8x8 tile
-on the f32 FMA units, which rounds nowhere between its f32 operands.
+driver builds it) goes to ``csrc/dense_layer_f32_tc.cu`` (``"f32"``): 3xTF32
+``wgmma`` on the tensor cores, as exact as f32 FMA, over weights split into
+TF32 halves (:func:`tf32_image`) on the card at the first launch with those
+weights and kept while they live unchanged.
 
 The TPU kernel computes bottleneck 128 and growth 32 only (it asserts
 F == 128), and so do the four CUDA kernels. A layer of other widths
@@ -70,6 +72,59 @@ class LayerOperands(NamedTuple):
     w2: torch.Tensor
 
 
+def tf32_split(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` of an f32 tensor: ``hi`` is ``t`` rounded to TF32 (10
+    mantissa bits) to nearest, ties away from zero, as ``cvt.rna.tf32.f32``
+    rounds, with its 13 low bits zero; ``lo`` is ``t - hi`` rounded the same
+    way. ``hi + lo`` is within 2^-21 of ``t`` (relative). Integer bit
+    operations, so the CPU and the card give the same bits (NaN payloads
+    aside)."""
+    def rna(x):
+        return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    t = t.float().contiguous()
+    hi = rna(t)
+    return hi, rna(t - hi)
+
+
+def tf32_image(m: torch.Tensor) -> torch.Tensor:
+    """The tensor-core kernel's shared-memory image of f32 matrices ``m``
+    (..., N, K), K a multiple of 32: (..., K/32, 2, N, 32), for each 32-wide
+    K block the :func:`tf32_split` halves (hi, then lo), each an (N, 32)
+    K-major block whose rows of 128 bytes carry the 128-byte swizzle of a
+    ``wgmma`` operand (16-byte piece c of row n stored at c ^ (n % 8))."""
+    *lead, n, k = m.shape
+    halves = torch.stack(tf32_split(m), -3)  # (..., 2, N, K)
+    blocks = halves.reshape(*lead, 2, n, k // 32, 8, 4).movedim(-3, -5)
+    perm = (torch.arange(8, device=m.device)
+            ^ (torch.arange(n, device=m.device)[:, None] % 8))
+    image = torch.gather(blocks, -2, perm[..., None].expand(blocks.shape))
+    return image.reshape(*lead, k // 32, 2, n, 32).contiguous()
+
+
+# w1 -> (w2, the weights' versions, w1's image, w2's image): the split
+# weights of the f32 tensor-core kernel, one entry per live set of operands
+_TF32_IMAGES = torch.utils.weak.WeakTensorKeyDictionary()
+
+
+def _tf32_weights(ops: LayerOperands) -> tuple[torch.Tensor, torch.Tensor]:
+    """The images that the f32 tensor-core kernel reads for ``ops``:
+    :func:`tf32_image` of ``w1`` (C_in/32, 2, F, 32) and of each tap of
+    ``w2`` (9, F/32, 2, G, 32). Built at the first call with these weights
+    and again only after they change in place (an inference tensor tracks
+    no version: it changes only within inference mode); dropped with
+    ``w1``."""
+    versions = tuple(None if t.is_inference() else t._version
+                     for t in (ops.w1, ops.w2))
+    hit = _TF32_IMAGES.get(ops.w1)
+    if hit is None or hit[0] is not ops.w2 or hit[1] != versions:
+        growth, f = ops.w2.shape[2:]
+        hit = (ops.w2, versions, tf32_image(ops.w1),
+               tf32_image(ops.w2.reshape(9, growth, f)))
+        _TF32_IMAGES[ops.w1] = hit
+    return hit[2], hit[3]
+
+
 def layer_operands(bn1, conv1_weight, bn2, conv2_weight, dtype) -> LayerOperands:
     """Fold one layer's BN parameters and lay its kernels out for the kernel.
 
@@ -90,18 +145,22 @@ def dense_layer_reference(state: torch.Tensor, c_in: int,
                           ops: LayerOperands) -> torch.Tensor:
     """Plain PyTorch version of the kernel: same function, in place.
 
-    f32 math; the BN1 output and the bottleneck are rounded to the state's
-    dtype before their convolution, as the kernel's tensor cores take them
-    (a no-op for f32 state). conv2's zero padding is the image mask.
+    f32 math (f64 for an f64 state: the yardstick that holds the f32
+    kernels to f32 accuracy); the BN1 output and the bottleneck are rounded
+    to the state's dtype before their convolution, as the kernel's tensor
+    cores take them (a no-op for f32 and f64 state). conv2's zero padding
+    is the image mask.
     """
     dt = state.dtype
+    ct = torch.float64 if dt == torch.float64 else torch.float32
     growth = ops.w2.shape[2]
-    x = state[..., :c_in].float()
-    h = torch.relu(x * ops.inv1 + ops.sh1).to(dt).float()
-    b = F.conv2d(h.permute(0, 3, 1, 2), ops.w1.float()[:, :, None, None])
-    b = torch.relu(b * ops.inv2[:, None, None] + ops.sh2[:, None, None])
-    b = b.to(dt).float()
-    part = F.conv2d(b, ops.w2.float().permute(2, 3, 0, 1), padding=1)
+    x = state[..., :c_in].to(ct)
+    h = torch.relu(x * ops.inv1.to(ct) + ops.sh1.to(ct)).to(dt).to(ct)
+    b = F.conv2d(h.permute(0, 3, 1, 2), ops.w1.to(ct)[:, :, None, None])
+    b = torch.relu(b * ops.inv2.to(ct)[:, None, None]
+                   + ops.sh2.to(ct)[:, None, None])
+    b = b.to(dt).to(ct)
+    part = F.conv2d(b, ops.w2.to(ct).permute(2, 3, 0, 1), padding=1)
     state[..., c_in:c_in + growth] = part.permute(0, 2, 3, 1).to(dt)
     return state
 
@@ -252,8 +311,8 @@ def dense_layer_route(batch: int, height: int, width: int, c_in: int,
     the variant is ``"cluster"``. Widths other than (``BOTTLENECK``,
     ``GROWTH``), which no TPU kernel computes, go to ``"convs"``
     (:func:`dense_layer_convs`) at any dtype. An f32 state goes to the f32
-    kernel, ``"f32"``. For bf16, maps of side >= 64 go to the persistent
-    kernel; smaller ones follow ``SMALL_MAP_ROUTES``. A c_in past the
+    tensor-core kernel, ``"f32"``. For bf16, maps of side >= 64 go to the
+    persistent kernel; smaller ones follow ``SMALL_MAP_ROUTES``. A c_in past the
     persistent kernel's budget goes to the tile kernel."""
     if (bottleneck, growth) != (BOTTLENECK, GROWTH):
         return "convs", None
@@ -286,7 +345,7 @@ VARIANTS = ("persistent", "tile", "cluster")  # the bf16 dense-layer kernels
 KERNEL_VARIANTS = (*VARIANTS, "f32")  # every dense-layer kernel
 ROUTES = (*KERNEL_VARIANTS, "convs")
 _LIBRARIES = {"tile": "dense_layer", "persistent": "dense_layer_persistent",
-              "cluster": "dense_layer_cluster", "f32": "dense_layer_f32"}
+              "cluster": "dense_layer_cluster", "f32": "dense_layer_f32_tc"}
 
 
 def _launcher(variant):
@@ -336,9 +395,10 @@ def dense_layer(state: torch.Tensor, c_in: int, ops: LayerOperands,
             dense_layer.variant_launches["convs"] += 1
             return state
     _check_kernel_args(state, c_in, ops, variant)
+    w1, w2 = _tf32_weights(ops) if variant == "f32" else (ops.w1, ops.w2)
     args = [state.data_ptr(), ops.inv1.data_ptr(), ops.sh1.data_ptr(),
-            ops.w1.data_ptr(), ops.inv2.data_ptr(), ops.sh2.data_ptr(),
-            ops.w2.data_ptr(), B, H, W, C, c_in, BOTTLENECK, GROWTH]
+            w1.data_ptr(), ops.inv2.data_ptr(), ops.sh2.data_ptr(),
+            w2.data_ptr(), B, H, W, C, c_in, BOTTLENECK, GROWTH]
     if variant == "persistent":
         args.append(_sm_count(state.device))
     elif variant == "cluster":

@@ -1,19 +1,25 @@
-"""Ablations of the persistent and cluster dense-layer kernels on one card.
+"""Ablations of the persistent, cluster and f32 tensor-core dense-layer
+kernels on one card.
 
 Builds ``csrc/dense_layer_persistent.cu`` (or, with ``--kernel cluster``,
-``csrc/dense_layer_cluster.cu``) as it is and once per ablation with one
+``csrc/dense_layer_cluster.cu``, with ``--kernel f32_tc``
+``csrc/dense_layer_f32_tc.cu``) as it is and once per ablation with one
 text edit (each named in ``ABLATIONS``), then times every build at
 DenseNet121 layer shapes and prints one JSON line per shape. The persistent
 kernel is timed with CUDA events at blocks 0 and 1 of DenseNet121-512 (batch
 8), beside the tile kernel. The cluster kernel is timed by device time
 (torch.profiler) at the small maps, at every cluster size, beside the tile
 and persistent kernels; its ablations run in two profiler sessions, the
-second in the reverse order. An ablation that skips work computes a wrong
-layer: its time says what that work costs on the kernel's critical path, and
-nothing else.
+second in the reverse order. The f32 tensor-core kernel is timed with CUDA
+events at one layer of each DenseNet121-512 block at batch 64 and at the
+small maps at batch 2, and each build's output is
+held against the layer in f64 (max |out - f64| / max |f64|). An ablation that
+skips work computes a wrong layer: its time says what that work costs on the
+kernel's critical path, and nothing else.
 
 Run from the root of a checkout:
-``python -m tennis_torch.tools.dense_layer_ablation [--kernel cluster]``.
+``python -m tennis_torch.tools.dense_layer_ablation [--kernel cluster |
+f32_tc]``.
 """
 from __future__ import annotations
 
@@ -28,6 +34,13 @@ import threading
 
 import torch
 
+# the f32 tensor-core kernel's three products of a conv1 and a conv2 K step
+F32_CONV1_MMA = ("        mma_n128(part, lo[kk], dh, kk > 0);\n"
+                 "        mma_n128(part, hi[kk], dl, 1);\n"
+                 "        mma_n128(part, hi[kk], dh, 1);\n")
+F32_CONV2_MMA = ("        mma_n32(part2[p], blo[tap & 1][kk], dh, kk % 4 != 0);\n"
+                 "        mma_n32(part2[p], bhi[tap & 1][kk], dl, 1);\n"
+                 "        mma_n32(part2[p], bhi[tap & 1][kk], dh, 1);\n")
 # name -> [(text in the source, replacement)]
 ABLATIONS = {"persistent": {
     "as_is": [],
@@ -83,6 +96,37 @@ ABLATIONS = {"persistent": {
     # (ldmatrix may then move across a barrier: timing only)
     "mma_free": [("  asm volatile(\n      \"mma.sync", "  asm(\n      \"mma.sync")],
     "ldsm_free": [("  asm volatile(\"ldmatrix", "  asm(\"ldmatrix")],
+}, "f32_tc": {
+    "as_is": [],
+    # conv1's or conv2's wgmmas skipped, or both (still take every stage)
+    "no_conv1_mma": [(F32_CONV1_MMA, "")],
+    "no_conv2_mma": [(F32_CONV2_MMA, "")],
+    "no_mma": [(F32_CONV1_MMA, ""), (F32_CONV2_MMA, "")],
+    # one TF32 product a pair (hi * hi) instead of three
+    "one_product": [(F32_CONV1_MMA,
+                     "        mma_n128(part, hi[kk], dh, kk > 0);\n"),
+                    (F32_CONV2_MMA, "        mma_n32(part2[p], "
+                     "bhi[tap & 1][kk], dh, kk % 4 != 0);\n")],
+    # no promotion: each accumulator sums its whole share of K on the tensor
+    # cores (conv2 keeps its two parts a warpgroup)
+    "no_promotion": [("        mma_n128(part, lo[kk], dh, kk > 0);",
+                      "        mma_n128(part, lo[kk], dh, 1);"),
+                     ("      for (int j = 0; j < 64; ++j) acc[j] += part[j];",
+                      "      for (int j = 0; j < 64; ++j) acc[j] = part[j];"),
+                     ("blo[tap & 1][kk], dh, kk % 4 != 0);",
+                      "blo[tap & 1][kk], dh, 1);"),
+                     ("      for (int j = 0; j < 16; ++j) acc2[j] += part2[0][j];\n"
+                      "#pragma unroll\n"
+                      "      for (int j = 0; j < 16; ++j) acc2[j] += part2[1][j];",
+                      "      for (int j = 0; j < 16; ++j)\n"
+                      "        acc2[j] = part2[0][j] + part2[1][j];")],
+    # the x chunks copied by one producer warp, or not copied (stale data)
+    "x_by_one_warp": [("for (int v = pt; v < kHaloPx * 8; v += kProducerThreads)",
+                       "for (int v = pt; v < kHaloPx * 8 && pt < 32; v += 32)")],
+    "no_x_copy": [("          if (iy >= 0 && iy < H && ix >= 0 && ix < W)\n"
+                   "            cp_async16(",
+                   "          if (iy >= 0 && iy < H && ix >= 0 && ix < W && H < 0)\n"
+                   "            cp_async16(")],
 }}
 # (batch, side, c_in, c_final)
 CASES = {
@@ -92,6 +136,10 @@ CASES = {
     # first and last layer of blocks 2 and 3, the ragged 7x7 map, batch 1
     "cluster": [(8, 32, 256, 288), (8, 32, 992, 1024), (8, 16, 512, 544),
                 (8, 16, 992, 1024), (8, 7, 512, 544), (1, 16, 512, 544)],
+    # a middle layer of each block at a decode batch's 64 frames; the small
+    # maps at batch 2
+    "f32_tc": [(64, 128, 160, 256), (64, 64, 320, 512), (64, 32, 640, 1024),
+               (64, 16, 768, 1024), (2, 32, 640, 1024), (2, 16, 768, 1024)],
 }
 
 
@@ -178,6 +226,45 @@ def device_ms(runs, reps=10):
             for i, (key, _) in enumerate(runs)}
 
 
+def f32_row(db, launch, gen, dev, batch, side, c_in, c_final):
+    """One shape of the f32 tensor-core kernel's ablations: each build's ms
+    (CUDA events, twice, in turns) and its max |out - f64| / max |f64|."""
+    def rand(*shape, std=1.0):
+        return torch.empty(shape, device=dev).normal_(0, std, generator=gen)
+
+    state = rand(batch, side, side, c_final)
+    ops = db.LayerOperands(
+        rand(c_in).abs() + 0.5, rand(c_in) * 0.5,
+        rand(128, c_in, std=c_in ** -0.5), rand(128).abs() + 0.5,
+        rand(128) * 0.5, rand(3, 3, 32, 128, std=1152 ** -0.5))
+    w1, w2 = db._tf32_weights(ops)
+    want = db.dense_layer_reference(state.double(), c_in,
+                                    ops)[..., c_in:c_in + db.GROWTH]
+
+    def run(name, st):
+        err = launch[name](
+            st.data_ptr(), ops.inv1.data_ptr(), ops.sh1.data_ptr(),
+            w1.data_ptr(), ops.inv2.data_ptr(), ops.sh2.data_ptr(),
+            w2.data_ptr(), batch, side, side, c_final, c_in,
+            db.BOTTLENECK, db.GROWTH, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"{name}: CUDA error {err}")
+
+    row = {"case": [batch, side, side, c_final], "c_in": c_in}
+    for name in launch:
+        got = state.clone()
+        run(name, got)
+        torch.cuda.synchronize()
+        part = got[..., c_in:c_in + db.GROWTH].double()
+        row[f"{name}_rel_err_f64"] = ((part - want).abs().max()
+                                      / want.abs().max()).item()
+    order = list(launch)
+    for name in order + order[::-1]:  # each ablation twice, in turns
+        row.setdefault(f"{name}_ms", []).append(
+            time_ms(lambda: run(name, state)))
+    return row
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernel", choices=sorted(ABLATIONS),
@@ -195,9 +282,11 @@ def main(argv=None) -> int:
     print(json.dumps({"card": card}), flush=True)
     built = build_all(kernel, os.path.join(BUILD, "ablation"))
     launch = {}
+    n_int = 7 if kernel == "f32_tc" else 8  # ..., max_ctas or cluster size
     for name, (lib, ptxas) in built.items():
         fn = getattr(ctypes.CDLL(lib), f"dense_layer_{kernel}_launch")
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * n_int + [
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
         launch[name] = fn
         print(json.dumps({"build": name, "ptxas": ptxas}), flush=True)
@@ -205,6 +294,10 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(0)
+    if kernel == "f32_tc":
+        for case in CASES[kernel]:
+            print(json.dumps(f32_row(db, launch, gen, dev, *case)), flush=True)
+        return 0
     for batch, side, c_in, c_final in CASES[kernel]:
         def rand(*shape, std=1.0):
             return torch.empty(shape, device=dev).normal_(0, std, generator=gen)
