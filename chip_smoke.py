@@ -69,6 +69,28 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    epoch's weights; resuming
    from ``0000.params`` and taking epoch 1's first step gives the
    uninterrupted run's parameters;
+4d. raw video (``[predict]``, run last, after phase 7d): ``predict.predict``
+   past the decoder, the 0006 ``FrameModel(DenseNet121, 11)`` at 512^2 with
+   seeded random weights written by the port's checkpoint writer into a
+   temporary experiment
+   (``scores.txt``, ``classes.names``), over a video of 1000 seeded 544x968
+   frames (40 distinct; a short side of 512 + 32, so the test geometry is
+   the centre crop and needs no cv2) at ``--every 2`` and ``--batch_size
+   64``: 500 rows, 7 batches of 64 and one of 52 edge-padded to 64; gates:
+   ``frames.txt`` 0, 2, ..., 998, rows summing to 1, 58 dense launches a
+   batch split as the route names them for batch 64, no GRU launch, the
+   first and the ragged batch within 1e-2 of the plain-version forward,
+   ``events.tsv`` the ``label_runs`` of the argmax tiling [0, 998];
+   frames/s, device busy and idle share over 4 batches of ``classify``, the
+   prefetch stats, peak memory. ``[flownet]``: FlowNet-S in bf16 through
+   ``FlowRunner.flow_batch`` (uint8 upload, normalisation on the device,
+   cuDNN) at 8 pairs of seeded 720p frames cropped to 1280x704, seeded
+   random weights in flax naming through the bridge: 3 warm-up and 10
+   timed calls (pairs/s, device busy and idle share, the largest kernels,
+   peak memory, ``FlopCounterMode`` FLOPs and ``mfu``); gates: flow (8,
+   176, 320, 2) finite and within 3e-2 of max |f32 flow| of the same module
+   in f32 (TF32 off), the ``train=True`` pyramid's shapes, a (176, 320, 3)
+   uint8 ``flow_to_image``, no dense-layer or GRU kernel launched;
 5. GRU kernels vs plain version: ``gru_recurrence`` against
    ``gru_recurrence_reference`` in f32, both kernels (``"async"`` at every
    cluster size that takes the shape, and ``"barrier"`` where it fits), at
@@ -299,6 +321,13 @@ EXTRACT_BATCH = 64
 EXTRACT_FRAMES = 32 * EXTRACT_BATCH + 37
 EXTRACT_DISTINCT = 256
 PROFILE_BATCHES = 4
+PREDICT_FRAMES = 1000     # frames of the [predict] video
+PREDICT_EVERY = 2
+PREDICT_DISTINCT = 40     # distinct 544x968 frames the video cycles through
+PROB_TOL = 1e-2           # max |probability - plain forward's|
+FLOW_BATCH = 8            # FlowRunner's default batch of pairs
+FLOW_WARMUP, FLOW_TIMED = 3, 10
+FLOW_TOL = 3e-2           # max |bf16 flow - f32 flow| / max |f32 flow|
 POOL_BATCH, POOL_WINDOW = 2, 8
 # training: the driver's --batch_size and default optimizer; the f32
 # comparison at a smaller batch, to hold two models' activations at once
@@ -1324,6 +1353,232 @@ def evaluate_phase(dev, model, frames):
         raise SystemExit("evaluation failed its gates")
     total = {v: by_variant[v] + pool_by_variant[v] for v in by_variant}
     return total
+
+
+def predict_experiment(work):
+    """The 0006 ``FrameModel(DenseNet121, 11)`` at 512^2 with seeded random
+    weights in flax naming, written by the port's checkpoint writer as epoch
+    0 of ``<work>/models/vision/experiments/0006`` with ``scores.txt``, and
+    ``<work>/data/classes.names``; returns the model (CPU, f32 parameters)."""
+    from tennis_torch.bridge import load_flax, to_flax
+    from tennis_torch.data.tennis_set import DEFAULT_CLASSES
+    from tennis_torch.inference import build_frame_model
+    from tennis_torch.utils import checkpoint as ckpt
+
+    model = build_frame_model("DenseNet121", 11, DATA_SHAPE)
+    tree = random_flax_tree(to_flax(model), np.random.default_rng(SEED + 40))
+    load_flax(model, tree)
+    exp = os.path.join(work, "models", "vision", "experiments", "0006")
+    ckpt.save_state(ckpt.epoch_path(exp, 0), tree)
+    ckpt.append_score(exp, 0, 0.5)
+    os.makedirs(os.path.join(work, "data"))
+    with open(os.path.join(work, "data", "classes.names"), "w") as f:
+        f.write("\n".join(DEFAULT_CLASSES) + "\n")
+    return model
+
+
+def predict_frames(pool, n):
+    """The first ``n`` frames of a video cycling through ``pool``, sampled
+    at ``--every`` PREDICT_EVERY as the decoder's frames are."""
+    from tennis_torch.predict import sample_frames
+
+    return sample_frames((pool[i % len(pool)] for i in range(n)),
+                         PREDICT_EVERY)
+
+
+def predict_phase(dev):
+    """``predict.predict`` at full width past the decoder: PREDICT_FRAMES
+    seeded 544x968 frames (PREDICT_DISTINCT distinct) at ``--every 2`` and
+    ``--batch_size 64`` into a temporary experiment's best epoch, through
+    the test geometry, the pinned prefetch and the dense-layer kernels, to
+    ``probabilities.npy``, ``frames.txt`` and ``events.tsv``."""
+    from tennis_torch import predict
+    from tennis_torch.data.tennis_set import DEFAULT_CLASSES
+    from tennis_torch.data.transforms import device_prepare, test_geometry
+    from tennis_torch.inference import load_classifier
+    from tennis_torch.ops import dense_block as db
+
+    rng = np.random.default_rng(SEED + 41)
+    pool = rng.integers(0, 256, (PREDICT_DISTINCT, DATA_SHAPE + 32, 968, 3),
+                        dtype=np.uint8)
+    n_rows = PREDICT_FRAMES // PREDICT_EVERY
+    with tempfile.TemporaryDirectory() as work, contextlib.chdir(work):
+        model = predict_experiment(work)
+        argv = ["--root=data", "--model_id=0006", "--backbone=DenseNet121",
+                f"--every={PREDICT_EVERY}", f"--batch_size={EXTRACT_BATCH}",
+                f"--data_shape={DATA_SHAPE}", f"--device={dev.type}"]
+        warm = predict.parse_args(argv + ["--out_dir=warm"])
+        predict.predict(warm, predict_frames(pool, 2 * EXTRACT_BATCH))
+        args = predict.parse_args(argv + ["--out_dir=out"])
+        stats = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        probs, ids, events = predict.predict(
+            args, predict_frames(pool, PREDICT_FRAMES), stats)
+        wall = time.perf_counter() - t0
+        dense, gru_n = kernel_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        frames_txt = open(os.path.join("out", "frames.txt")).read()
+        events_tsv = open(os.path.join("out", "events.tsv")).read()
+        saved = np.load(os.path.join("out", "probabilities.npy"))
+
+        # device busy and idle share over PROFILE_BATCHES batches of the
+        # pipeline past the checkpoint load (the same classify call)
+        _, predict_probs, _ = load_classifier("DenseNet121", "0006",
+                                              DATA_SHAPE, "data", dev)
+        walls = []
+
+        def profiled():
+            t = time.perf_counter()
+            predict.classify(predict_frames(
+                pool, PROFILE_BATCHES * EXTRACT_BATCH * PREDICT_EVERY),
+                predict_probs, EXTRACT_BATCH, DATA_SHAPE, dev)
+            walls.append((time.perf_counter() - t) * 1e3)
+
+        by_name = device_profile(profiled)
+
+    # the first and the ragged batch against the plain-version forward
+    model = model.to(dev).eval()
+    model.backbone.fold()
+    errs = {}
+    full, ragged = divmod(n_rows, EXTRACT_BATCH)
+    for name, lo, n in (("first", 0, EXTRACT_BATCH),
+                        ("ragged", full * EXTRACT_BATCH, ragged)):
+        rows = np.arange(lo, lo + n)
+        crops = np.stack([test_geometry(pool[(r * PREDICT_EVERY) % len(pool)],
+                                        DATA_SHAPE) for r in rows])
+        with torch.inference_mode():
+            x = device_prepare(torch.from_numpy(crops).to(dev))
+            want = torch.softmax(db.frame_model_apply(
+                model, x, layer=db.dense_layer_reference), -1).cpu().numpy()
+        errs[name] = float(np.abs(probs[rows] - want).max())
+    del model
+    want_ids = np.arange(0, PREDICT_FRAMES, PREDICT_EVERY)
+    want_events = predict.label_runs(probs.argmax(-1), ids, probs)
+    want_tsv = "start\tend\tclass\tmean_prob\n" + "".join(
+        f"{s}\t{e}\t{DEFAULT_CLASSES[c]}\t{p:.4f}\n"
+        for s, e, c, p in want_events)
+    tiles = (events[0][0] == 0 and events[-1][1] == want_ids[-1] and all(
+        a[1] + PREDICT_EVERY == b[0] for a, b in zip(events, events[1:])))
+    batches = -(-n_rows // EXTRACT_BATCH)
+    want_counts = {v: batches * n
+                   for v, n in routed_launches(db, EXTRACT_BATCH).items()}
+    busy_ms = sum(v[0] for k, v in by_name.items()
+                  if not k.startswith(("Memcpy", "Memset")))
+    ok = (probs.shape == (n_rows, 11) and bool(np.isfinite(probs).all())
+          and np.array_equal(saved, probs)
+          and bool(np.allclose(probs.sum(-1), 1.0, atol=1e-3))
+          and np.array_equal(ids, want_ids)
+          and frames_txt == "\n".join(map(str, want_ids)) + "\n"
+          and sum(dense.values()) == 58 * batches and dense == want_counts
+          and gru_n == 0 and all(e <= PROB_TOL for e in errs.values())
+          and events == want_events and events_tsv == want_tsv and tiles)
+    log("predict", frames=PREDICT_FRAMES, every=PREDICT_EVERY, rows=n_rows,
+        source_hw=list(pool.shape[1:3]), batch=EXTRACT_BATCH, batches=batches,
+        ragged_batch=ragged, data_shape=DATA_SHAPE, wall_s=wall,
+        classify_s=stats["classify_s"],
+        frames_per_s=n_rows / stats["classify_s"],
+        frames_per_s_with_load=n_rows / wall,
+        prefetch={k: stats[k] for k in ("source_s", "device_put_s",
+                                        "queue_full_s", "batches")},
+        launches=sum(dense.values()), launches_by_variant=dense,
+        routed_launches_by_variant=want_counts, events=len(events),
+        probs_abs_err=errs, tol=PROB_TOL, peak_mem_gib=peak_gib,
+        profile={"frames": PROFILE_BATCHES * EXTRACT_BATCH,
+                 "wall_ms": walls[-1], "device_busy_ms": busy_ms,
+                 "idle_share": 1 - busy_ms / walls[-1],
+                 "dense_layer_ms": sum(
+                     v[0] for k, v in by_name.items()
+                     if any(n in k for n in DENSE_KERNELS.values())),
+                 "top": [[k[:60], v[0], v[1]] for k, v in sorted(
+                     by_name.items(), key=lambda kv: -kv[1][0])[:8]]},
+        ok=ok)
+    if not ok:
+        raise SystemExit("predict failed its gates")
+    return dense
+
+
+def flownet_phase(dev):
+    """FlowNet-S in bf16 through ``FlowRunner.flow_batch`` (uint8 upload,
+    normalisation on the device, cuDNN convolutions) at FLOW_BATCH pairs of
+    seeded 720p frames cropped to 1280x704, seeded random weights in flax
+    naming through the bridge; against the same module in f32 (TF32 off)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from tennis_torch.bridge import load_flax, to_flax
+    from tennis_torch.models.flownet import FlowNetS
+    from tennis_torch.models.flownet_run import FlowRunner, crop_to_64, \
+        flow_to_image, normalise_pairs
+
+    rng = np.random.default_rng(SEED + 42)
+    params = random_flax_tree(to_flax(FlowNetS()), rng)["params"]
+    frames = rng.integers(0, 256, (FLOW_BATCH + 1, 720, 1280, 3),
+                          dtype=np.uint8)
+    pairs = np.stack([np.stack([crop_to_64(frames[i]),
+                                crop_to_64(frames[i + 1])])
+                      for i in range(FLOW_BATCH)])
+    runner = FlowRunner(params=params, batch_size=FLOW_BATCH, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    times = []
+    for _ in range(FLOW_WARMUP + FLOW_TIMED):
+        t0 = time.perf_counter()
+        flow = runner.flow_batch(pairs)  # a host array: synchronized
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = times[FLOW_WARMUP:]
+    med = statistics.median(ms)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    walls = []
+
+    def profiled():
+        t = time.perf_counter()
+        runner.flow_batch(pairs)
+        walls.append((time.perf_counter() - t) * 1e3)
+
+    by_name = device_profile(profiled)
+    clean = no_kernel_launched(by_name)
+    busy_ms = sum(v[0] for k, v in by_name.items()
+                  if not k.startswith(("Memcpy", "Memset")))
+
+    x = normalise_pairs(torch.from_numpy(pairs).to(dev))
+    f32 = load_flax(FlowNetS(dtype=torch.float32), {"params": params}).to(dev)
+    with torch.inference_mode():
+        want = f32(x)
+        pyramid = runner.model(x, train=True)
+        with FlopCounterMode(display=False) as fc:
+            runner.model(x[:1])
+    rel = float((torch.from_numpy(flow).to(dev) - want).abs().max()
+                / want.abs().max())
+    h, w = pairs.shape[2] // 4, pairs.shape[3] // 4
+    shapes = [list(f.shape) for f in pyramid]
+    want_shapes = [[FLOW_BATCH, h // s, w // s, 2] for s in (1, 2, 4, 8, 16)]
+    image = flow_to_image(flow[0])
+    flops = fc.get_total_flops()
+    ok = (flow.shape == (FLOW_BATCH, h, w, 2) == (FLOW_BATCH, 176, 320, 2)
+          and bool(np.isfinite(flow).all()) and rel <= FLOW_TOL
+          and shapes == want_shapes and image.shape == (h, w, 3)
+          and image.dtype == np.uint8 and clean)
+    log("flownet", pairs=FLOW_BATCH, pair_hw=list(pairs.shape[2:4]),
+        dtype="bfloat16", flow_shape=list(flow.shape), pyramid=shapes,
+        rel_err_vs_f32=rel, tol=FLOW_TOL, max_abs_f32_flow=float(
+            want.abs().max()), image=list(image.shape),
+        batch_ms=med, batch_ms_min=min(ms), batch_ms_max=max(ms),
+        pairs_per_s=FLOW_BATCH / med * 1e3,
+        model_gflop_per_pair=flops / 1e9,
+        mfu=flops * FLOW_BATCH / (med / 1e3) / PEAK_BF16_FLOPS,
+        device_busy_ms=busy_ms, profiled_wall_ms=walls[-1],
+        idle_share=1 - busy_ms / walls[-1],
+        device_mfu=flops * FLOW_BATCH / (busy_ms / 1e3) / PEAK_BF16_FLOPS,
+        memcpy_ms=sum(v[0] for k, v in by_name.items()
+                      if k.startswith("Memcpy")),
+        top=[[k[:60], v[0], v[1]] for k, v in sorted(
+            by_name.items(), key=lambda kv: -kv[1][0])[:8]],
+        peak_mem_gib=peak_gib, no_kernel_launched=clean, ok=ok)
+    if not ok:
+        raise SystemExit("FlowNet-S failed its gates")
 
 
 def train_flops(batch, side=DATA_SHAPE, blocks=(6, 12, 24, 16), classes=11):
@@ -4276,8 +4531,8 @@ def dense_entry(name, variant, stack, launches, max_abs):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": sum(r["library_ms"] for r in mine),
         "work": work + "; launches count the /predict batches served and the "
-                       "[extract], [evaluate] and [train_driver] runs and the "
-                       "evaluation forwards of [two_stream] and "
+                       "[extract], [evaluate], [predict] and [train_driver] "
+                       "runs and the evaluation forwards of [two_stream] and "
                        "[cnnrnn_clips]",
     }
 
@@ -4368,6 +4623,11 @@ def main() -> int:
         pixcap_train_phase(torch.device("cuda"), caption_vocab())
         f32_counts = pixcap_driver_phase(torch.device("cuda"), caption_vocab(),
                                          root)
+    # last: their profiles gate nothing, so a profiler session that records
+    # nothing after them (as once after [train_driver]) fails no phase
+    counts = predict_phase(torch.device("cuda"))
+    launches = {v: launches[v] + counts[v] for v in launches}
+    flownet_phase(torch.device("cuda"))
     log("route_summary", routed_is_fastest_by_batch={
         b: {"fastest": a, "shapes": n} for b, (a, n) in agree.items()})
 

@@ -6,6 +6,10 @@ JAX package) maps to a torch ``state_dict`` by name, with the naming of
 ``tennis_tpu/models/convert.py`` read in the other direction:
 
 - ``a/b/kernel`` (4-d, HWIO)  -> ``a.b.weight`` (OIHW)
+- ``a/b/kernel`` (4-d, HWIO) of a ``ConvTranspose2d`` -> ``a.b.weight`` (IOHW,
+  flipped in space: flax's ``ConvTranspose`` correlates with its kernel as
+  stored, torch's transposed convolution with the kernel flipped); chosen
+  by the module's type, so it needs the module (``load_flax``)
 - ``a/b/kernel`` (5-d, DHWIO) -> ``a.b.weight`` (OIDHW, a ``Conv3d``)
 - ``a/b/kernel`` (2-d, in x out) -> ``a.b.weight`` (out x in)
 - ``a/b/embedding`` (2-d, V x E) -> ``a.b.weight`` of an ``nn.Embedding``
@@ -14,9 +18,10 @@ JAX package) maps to a torch ``state_dict`` by name, with the naming of
 - batch_stats ``a/b/mean``/``var`` -> ``a.b.running_mean``/``running_var``
 
 ``to_flax`` reads the other direction by module type: a ``Conv2d`` weight is
-a kernel in HWIO, a ``Conv3d`` weight one in DHWIO, a ``Linear`` weight a
-kernel in (in, out), an ``Embedding`` weight an embedding table as it is,
-any other 1-d weight a BatchNorm scale.
+a kernel in HWIO, a ``ConvTranspose2d`` weight one flipped back into HWIO,
+a ``Conv3d`` weight one in DHWIO, a ``Linear`` weight a kernel in (in, out),
+an ``Embedding`` weight an embedding table as it is, any other 1-d weight a
+BatchNorm scale.
 
 ``state_to_flax`` and ``state_from_flax`` carry a whole train state
 (``parallel.train_step.TrainState``) in the layout of the JAX package's
@@ -47,16 +52,23 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def from_flax(variables: dict) -> dict[str, torch.Tensor]:
-    """flax ``{"params", "batch_stats"}`` tree -> torch state dict (f32)."""
+def from_flax(variables: dict,
+              module: torch.nn.Module | None = None) -> dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` tree -> torch state dict (f32);
+    the 4-d kernels of ``module``'s ``ConvTranspose2d`` modules as theirs."""
     unknown = set(variables) - {"params", "batch_stats"}
     if unknown:
         raise KeyError(f"unexpected variable collections {sorted(unknown)}")
+    transposed = set() if module is None else {
+        name for name, m in module.named_modules()
+        if isinstance(m, torch.nn.ConvTranspose2d)}
     state = {}
     for path, value in _leaves(variables.get("params", {})):
         *mod, leaf = path
         arr = np.asarray(value, dtype=np.float32)
-        if leaf == "kernel" and arr.ndim == 4:
+        if leaf == "kernel" and arr.ndim == 4 and ".".join(mod) in transposed:
+            arr, name = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1], "weight"
+        elif leaf == "kernel" and arr.ndim == 4:
             arr, name = arr.transpose(3, 2, 0, 1), "weight"
         elif leaf == "kernel" and arr.ndim == 5:
             arr, name = arr.transpose(4, 3, 0, 1, 2), "weight"
@@ -127,7 +139,8 @@ def _param_leaf(sub, leaf, mod) -> str:
         return "bias"
     if leaf != "weight":
         raise KeyError(f"no flax counterpart for {'.'.join(mod + [leaf])}")
-    if isinstance(sub, torch.nn.Conv2d | torch.nn.Conv3d | torch.nn.Linear):
+    if isinstance(sub, torch.nn.Conv2d | torch.nn.Conv3d | torch.nn.Linear
+                  | torch.nn.ConvTranspose2d):
         return "kernel"
     if isinstance(sub, torch.nn.Embedding):
         return "embedding"
@@ -137,6 +150,8 @@ def _param_leaf(sub, leaf, mod) -> str:
 def _param_array(sub, leaf, arr: np.ndarray) -> np.ndarray:
     if leaf == "weight" and isinstance(sub, torch.nn.Conv2d):
         return np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+    if leaf == "weight" and isinstance(sub, torch.nn.ConvTranspose2d):
+        return np.ascontiguousarray(arr[:, :, ::-1, ::-1].transpose(2, 3, 0, 1))
     if leaf == "weight" and isinstance(sub, torch.nn.Conv3d):
         return np.ascontiguousarray(arr.transpose(2, 3, 4, 1, 0))
     if leaf == "weight" and isinstance(sub, torch.nn.Linear):
@@ -322,5 +337,5 @@ def state_from_flax(state, tree: dict) -> None:
 
 def load_flax(module: torch.nn.Module, variables: dict) -> torch.nn.Module:
     """Load a flax tree into ``module`` (strict: every key on both sides)."""
-    module.load_state_dict(from_flax(variables), strict=True)
+    module.load_state_dict(from_flax(variables, module), strict=True)
     return module

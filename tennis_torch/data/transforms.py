@@ -69,10 +69,14 @@ class ThreadLocalRng:
 
 
 def resize_shorter(img: np.ndarray, size: int) -> np.ndarray:
-    """Resize so the shorter side equals ``size``, keeping the aspect ratio."""
+    """Resize so the shorter side equals ``size``, keeping the aspect ratio;
+    an image whose shorter side is ``size`` already comes back as it is (the
+    resize would copy it exactly), with no cv2 needed."""
+    h, w = img.shape[:2]
+    if min(h, w) == size:
+        return img
     import cv2
 
-    h, w = img.shape[:2]
     if h < w:
         new_h, new_w = size, max(1, round(w * size / h))
     else:

@@ -15,8 +15,9 @@ driver). The model is the one the flags compose (``train.build_model``):
 R(2+1)D over clips (``--backbone rdnet --window 8|32``), the CNN-RNN over
 features or clips (``--window > 1 --temp_pool gru|lstm``), the two-stream
 net (``--flow twos|only``), the 6-channel backbone (``--flow sixc``) or the
-framewise classifier over a DenseNet or ResNet-v2. ``--vis`` is not ported
-yet.
+framewise classifier over a DenseNet or ResNet-v2. ``--vis`` renders the
+scored frames with their probabilities into ``<experiment>/results.mp4``
+(``utils.visualisation.visualise_events``).
 
 Run: ``python -m tennis_torch.evaluate --model_id 0006 --backbone
 DenseNet121`` (``--device cpu`` off the GPU; add the training flags of the
@@ -28,6 +29,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import time
 
 import torch
@@ -118,6 +120,12 @@ def evaluate_model(args: argparse.Namespace):
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:
             json.dump(metrics["prf1"].get_dict(), f)
+    if args.vis:
+        from tennis_torch.utils.visualisation import visualise_events
+
+        out_path = os.path.join(exp_dir, "results.mp4")
+        visualise_events(test_set, results, out_path)
+        log.info("wrote %s", out_path)
     return results, gts, metrics
 
 

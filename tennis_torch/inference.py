@@ -80,11 +80,15 @@ def load_classifier_state(backbone: str, model_id: str, data_shape: int,
 
 def make_predict_probs(model, device: torch.device):
     """Move ``model`` to ``device``, fold its BN operands once, and return
-    ``predict_probs(uint8 (B, S, S, 3)) -> np.ndarray (B, classes)``."""
+    ``predict_probs(uint8 (B, S, S, 3)) -> np.ndarray (B, classes)``; the
+    frames a host array or a tensor (one already on ``device`` is not
+    copied)."""
     step = make_eval_step(model, device)
 
     def predict_probs(images) -> np.ndarray:
-        logits = step(np.asarray(images, np.uint8))
+        if not isinstance(images, torch.Tensor):
+            images = np.asarray(images, np.uint8)
+        logits = step(images)
         return torch.softmax(logits, dim=-1).cpu().numpy()
 
     return predict_probs

@@ -42,8 +42,9 @@ On a GPU every DenseNet dense layer of an evaluation runs in a dense-layer
 CUDA kernel; ResNet-v2 and R(2+1)D run cuDNN convolutions, as the JAX
 package runs XLA's; the train step runs plain torch ops, as the JAX package
 trains through its flax module (the CNN-RNN's GRU too: the GRU kernel is the
-captioner's decode's). Every option that the port does not run yet raises
-``NotImplementedError`` naming its ``ROADMAP.md`` slice.
+captioner's decode's). ``--vis`` is accepted and does nothing, as in the
+JAX trainer (``evaluate --vis`` renders). Every option that the port does
+not run yet raises ``NotImplementedError`` naming its ``ROADMAP.md`` slice.
 
 Run: ``python -m tennis_torch.train --model_id 0006 --backbone DenseNet121``
 (add ``--save_feats`` for the dump; ``--device cpu`` off the GPU);
@@ -163,9 +164,6 @@ def refuse_unported(args: argparse.Namespace):
     if args.pretrained_npz:
         raise NotImplementedError("--pretrained_npz needs the weight converter, "
                                   "not ported yet (ROADMAP.md slice 10)")
-    if args.vis:
-        raise NotImplementedError("--vis is not ported yet (ROADMAP.md "
-                                  "slice 4)")
 
 
 def refuse_feature_dump(model):

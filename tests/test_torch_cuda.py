@@ -1,8 +1,9 @@
 """The port on a CUDA card: the three dense-layer kernels (tile, persistent
 and cluster) against their plain version at small and ragged shapes, the
 wrapper's refusals and choice of kernel, DenseNet forwards through the
-kernels (DenseNet161's widths through ``dense_layer_convs``), and the two GRU
-kernels. Marked ``cuda``; each test skips without a card. On a
+kernels (DenseNet161's widths through ``dense_layer_convs``), the two GRU
+kernels, and the paths around them (FlowNet-S through cuDNN; ``predict``
+over in-memory frames). Marked ``cuda``; each test skips without a card. On a
 machine with one, run them without the JAX conftest:
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q``."""
 import pytest
@@ -863,3 +864,73 @@ def test_resnet_and_r21d_forwards_on_the_card_match_the_cpu(dev, backbone,
         runs.append(torch.cat([g.flatten().cpu() for g in grads]))
     assert (runs[1] - runs[0]).norm() <= 1e-6 * runs[0].norm()
     assert (db.dense_layer.launches, gru.gru_recurrence.launches) == launches
+
+
+def test_flownet_on_the_card_matches_the_cpu(dev):
+    """FlowNet-S through cuDNN (no kernel of its own): the five-scale
+    pyramid in f32 (TF32 off) within 1e-4 of max |flow| of the CPU's, and
+    ``FlowRunner.flow_batch`` in bf16 (uint8 upload, normalisation on the
+    card) within 3e-2 of the CPU's f32 flow; no dense-layer or GRU kernel
+    launched."""
+    import numpy as np
+
+    from tennis_torch.bridge import to_flax
+    from tennis_torch.models.flownet import FlowNetS
+    from tennis_torch.models.flownet_run import FlowRunner, normalise_pairs
+    from tennis_torch.ops import gru
+
+    gen = torch.Generator().manual_seed(4)
+    cpu = FlowNetS(dtype=torch.float32, generator=gen)
+    card = FlowNetS(dtype=torch.float32).to(dev)
+    card.load_state_dict(cpu.state_dict())
+    pairs = np.random.default_rng(5).integers(0, 256, (2, 2, 128, 192, 3),
+                                              dtype=np.uint8)
+    x = normalise_pairs(torch.from_numpy(pairs))
+    launches = (db.dense_layer.launches, gru.gru_recurrence.launches)
+    with torch.inference_mode():
+        want = cpu(x, train=True)
+        got = card(x.to(dev), train=True)
+    for g, w in zip(got, want):
+        assert (g.cpu() - w).abs().max() <= 1e-4 * w.abs().max()
+    runner = FlowRunner(params=to_flax(cpu)["params"], device="cuda")
+    flow = torch.from_numpy(runner.flow_batch(pairs))
+    assert flow.shape == want[0].shape
+    assert (flow - want[0]).abs().max() <= 3e-2 * want[0].abs().max()
+    assert (db.dense_layer.launches, gru.gru_recurrence.launches) == launches
+
+
+def test_predict_in_memory_frames_on_the_card_match_the_cpu(dev, tmp_path,
+                                                            monkeypatch):
+    """``predict.predict`` past the decoder on the card: 20 frames of 96x160
+    at ``--every 2 --batch_size 4 --data_shape 64`` (3 batches, the last
+    edge-padded) through the dense-layer kernels, 58 launches a batch,
+    probabilities within 1e-2 of the same run on the CPU and the same
+    ``frames.txt``."""
+    import numpy as np
+
+    from tennis_torch import predict
+    from tennis_torch.bridge import to_flax
+    from tennis_torch.inference import build_frame_model
+    from tennis_torch.utils import checkpoint as ckpt
+
+    monkeypatch.chdir(tmp_path)
+    model = build_frame_model("DenseNet121", 11, 64,
+                              generator=torch.Generator().manual_seed(6))
+    exp = tmp_path / "models" / "vision" / "experiments" / "p1"
+    ckpt.save_state(ckpt.epoch_path(str(exp), 0), to_flax(model))
+    frames = np.random.default_rng(7).integers(0, 256, (20, 96, 160, 3),
+                                               dtype=np.uint8)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        args = predict.parse_args([
+            "--model_id=p1", "--data_shape=64", "--batch_size=4", "--every=2",
+            f"--out_dir={device}", f"--device={device}", "--root=none"])
+        launches = db.dense_layer.launches
+        runs[device] = predict.predict(
+            args, predict.sample_frames(iter(frames), args.every))
+        runs[device + "_launches"] = db.dense_layer.launches - launches
+    assert runs["cuda_launches"] == 58 * 3 and runs["cpu_launches"] == 0
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], atol=1e-2)
+    np.testing.assert_array_equal(runs["cuda"][1], np.arange(0, 20, 2))
+    assert (tmp_path / "cuda" / "frames.txt").read_text() == \
+        (tmp_path / "cpu" / "frames.txt").read_text()

@@ -2,7 +2,8 @@
 --save_feats`` and ``evaluate`` against the JAX drivers on two copies of
 the synthetic fixture, from one JAX-written DenseNet121 experiment (data
 shape 32) with two epochs and ``scores.txt``; plus the flag surfaces, the
-refusals and the resume scan.
+refusals, ``--vis`` (the trainer accepts it and does nothing, as the JAX
+one; the evaluator renders ``results.mp4``) and the resume scan.
 
 Tolerances: features within ``LOGIT_TOL`` (5e-2) of max |JAX feature| per
 file, probabilities within 1e-2 absolute (both sides run DenseNet121 in
@@ -184,13 +185,19 @@ def test_save_feats_dumps_the_best_epoch(env):
 
 @pytest.fixture(scope="module")
 def evaluated(env):
+    """Both evaluators with ``--vis``; the JAX one's ``results.mp4`` is
+    moved aside to ``<workdir>/jax_results.mp4`` before the port writes
+    its own into the same experiment."""
     metrics = {k: os.path.join(env["workdir"], f"metrics_{k}.json")
                for k in ("jax", "port")}
     want = run_jax(jax_evaluate.evaluate_model,
-                   [f"--root={env['jax_root']}",
+                   [f"--root={env['jax_root']}", "--vis",
                     f"--metrics_out={metrics['jax']}", *COMMON])
+    os.replace(os.path.join(env["exp"], "results.mp4"),
+               os.path.join(env["workdir"], "jax_results.mp4"))
     got = evaluate.main([f"--root={env['port_root']}", "--device=cpu",
-                         f"--metrics_out={metrics['port']}", *COMMON])
+                         "--vis", f"--metrics_out={metrics['port']}",
+                         *COMMON])
     return want, got, metrics
 
 
@@ -263,15 +270,35 @@ def test_flags_equal_the_jax_drivers():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--vis", "--save_feats"], "--vis"),
-    (["--save_feats", "--multihost"], "multi-device"),
-    (["--save_feats", "--num_devices=2"], "multi-device"),
-    (["--save_feats", "--pretrained_npz=w.npz"], "pretrained_npz"),
+    pytest.param(["--save_feats", "--multihost"], "multi-device",
+                 id="argv1-multi-device"),
+    pytest.param(["--save_feats", "--num_devices=2"], "multi-device",
+                 id="argv2-multi-device"),
+    pytest.param(["--save_feats", "--pretrained_npz=w.npz"], "pretrained_npz",
+                 id="argv3-pretrained_npz"),
 ])
 def test_train_refuses_what_is_not_ported(argv, match, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=match):
         train.main(argv + ["--device=cpu"])
+
+
+def test_train_vis_save_feats_dumps_as_without_vis(env, monkeypatch):
+    """``--vis``, once refused, is accepted and does nothing, as in the JAX
+    trainer: ``--vis --save_feats`` dumps the files of ``--save_feats``."""
+    before = {rel: np.load(os.path.join(env["port_root"], "features",
+                                        MODEL_ID, rel))
+              for rel in feature_files(env["port_root"])}
+    monkeypatch.chdir(env["workdir"])
+    report = train.main([f"--root={env['port_root']}", "--save_feats",
+                         "--vis", "--device=cpu", *COMMON])
+    assert feature_files(env["port_root"]) == sorted(before)
+    for rel, want in before.items():
+        got = np.load(os.path.join(env["port_root"], "features", MODEL_ID,
+                                   rel))
+        np.testing.assert_array_equal(got, want, err_msg=rel)
+    assert {k: r["files"] for k, r in report.items()} == \
+        {k: r["files"] for k, r in env["report"].items()}
 
 
 @pytest.mark.parametrize("argv", [[], ["--flow=twos"]])
@@ -310,10 +337,41 @@ def test_rdnet_off_its_windows_raises_as_the_jax_driver(argv, env, tmp_path,
         run_jax(jax_train.train_and_evaluate, full + ["--num_devices=1"])
 
 
-def test_evaluate_refuses_vis(tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="--vis"):
-        evaluate.main(["--vis", "--device=cpu"])
+def test_evaluate_vis_writes_results_mp4(env, evaluated):
+    """``evaluate --vis``, once refused, writes ``<exp>/results.mp4``: the
+    20 test frames with their overlay, as the JAX package's
+    ``visualise_events`` renders the port's results; and, where every frame's
+    top-1 and bar height agree with the JAX evaluator's, its video pixel
+    for pixel."""
+    from types import SimpleNamespace
+
+    from tennis_tpu.utils.visualisation import BANNER_HEIGHT, \
+        visualise_events
+    from tennis_torch.data.tennis_set import load_classes
+
+    def decoded(path):
+        import cv2
+
+        cap = cv2.VideoCapture(path)
+        frames = []
+        while (read := cap.read())[0]:
+            frames.append(read[1])
+        cap.release()
+        return np.stack(frames)
+
+    (res_w, _, _), (res_g, _, _), _ = evaluated
+    got = decoded(os.path.join(env["exp"], "results.mp4"))
+    want = decoded(os.path.join(env["workdir"], "jax_results.mp4"))
+    assert got.shape == want.shape and len(got) == 20
+    shim = SimpleNamespace(classes=load_classes(env["port_root"]),
+                           _frames_dir=os.path.join(env["port_root"], "frames"))
+    rendered = visualise_events(shim, res_g, os.path.join(env["workdir"],
+                                                          "rendered.mp4"))
+    np.testing.assert_array_equal(got, decoded(rendered))
+    if all(np.argmax(res_g[k]) == np.argmax(p) and
+           int(BANNER_HEIGHT * p.max()) == int(BANNER_HEIGHT * res_g[k].max())
+           for k, p in res_w.items()):
+        np.testing.assert_array_equal(got, want)
 
 
 def test_entry_points_need_a_gpu_unless_told_cpu(tmp_path, monkeypatch):
