@@ -7,7 +7,8 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
 
 1. card: name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. build: ``nvcc`` of every kernel, all started together, with each one's
-   time and ptxas report;
+   time and ptxas report, and beside them the native host libraries
+   (``tennis_torch/native``, the system ``c++``) into ``tennis_torch/build``;
 3. kernel vs plain version: the three dense-layer kernels (persistent for
    the large maps, cluster split-K for the small ones, tile) against
    ``dense_layer_reference`` in bf16 at the first and last layer shape of
@@ -91,6 +92,33 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    176, 320, 2) finite and within 3e-2 of max |f32 flow| of the same module
    in f32 (TF32 off), the ``train=True`` pyramid's shapes, a (176, 320, 3)
    uint8 ``flow_to_image``, no dense-layer or GRU kernel launched;
+4e. the exported programs (last, after ``[flownet]``). ``[export]``: the
+   0006 ``FrameModel(DenseNet121, 11)`` at 512^2 with seeded random weights
+   written by the port's checkpoint writer into a temporary experiment,
+   through ``tennis_torch.export.export_classifier`` at batch 8 on the card
+   and ``save_exported``; gates: the graph holds 58
+   ``tennis_torch.dense_layer`` nodes naming the route's kernels and no
+   ``auto_functionalized`` node; a fresh ``python -c`` loads the artifact,
+   imports neither ``tennis_torch.models`` nor ``tennis_torch.inference``
+   and launches the routed kernels; 16 requests through ``serve
+   --from_export``'s ``build_service`` (the sidecar's batch 8 over the
+   flag's 2) take 58 launches a batch split as routed; the exported
+   probabilities within 1e-5 of the live ``make_predict_probs``, and their
+   centred logarithms within 5e-2 of the plain-version forward's centred
+   logits (same top-1); export seconds, artifact bytes, the batch-8
+   latency exported against live (medians of 10, alternating).
+   ``[export_caption]``: the 0102 captioner with seeded random weights as
+   ``valid_best.params`` over a caption index written to disk, through
+   ``export_captioner`` at batch 4, ``--src_max_len 128``, with
+   ``--pallas_gru`` (gates: 3 ``tennis_torch.gru_recurrence`` nodes, 3
+   GRU-kernel launches a batch by the routed variant, top beams equal to
+   the live ``load_captioner`` translator's on 8 seeded sources) and
+   without (no GRU node or launch, top beams equal to the live translator
+   run with the plain recurrence); ms a batch, exported against live.
+   ``[native]``: which native host libraries built here; with libjpeg, a
+   seeded 1280x720 JPEG decoded natively and by cv2 at full size (largest
+   pixel difference, ms a decode) and a 2160-line one at ``min_short``
+   544 (the 1/2 DCT scale); nothing gated;
 5. GRU kernels vs plain version: ``gru_recurrence`` against
    ``gru_recurrence_reference`` in f32, both kernels (``"async"`` at every
    cluster size that takes the shape, and ``"barrier"`` where it fits), at
@@ -98,8 +126,10 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    lengths 21/30/104/69 (every row ends before T), H 512, the evaluate batch
    (32), the default width (H 128), T 1, and a per-epoch decode batch of the
    captioning trainer (batch 32, T 512, lengths 64-512); device times of
-   each, which one
-   the route takes, times of the plain version, the port's whole layer
+   each (the profiler's, and beside them ``event_device_ms``: CUDA events
+   around one call queued behind a spinning stream, the clock a trace
+   falls back to where every profiler session dropped its kernels), which
+   one the route takes, times of the plain version, the port's whole layer
    (input GEMM + kernel) and cuDNN's ``nn.GRU`` over the same layer, the
    bound, and the serial floors: T cluster-barrier round trips for the
    barrier kernel, one ``st.async`` + mbarrier round trip of the kernel's
@@ -278,7 +308,8 @@ GRU_KERNELS = {"barrier": "gru_recurrence_kernel",
                "async": "gru_recurrence_async_kernel"}
 ROUTE_ROUNDS = 3
 # profiler sessions tried before a trace that dropped kernel records fails
-# the run (three in a row did, once in a dozen runs)
+# the run (three in a row did, once in a dozen runs), or, where all of them
+# recorded none of its kernels, is timed by CUDA events (kernel_device)
 TRACE_ATTEMPTS = 6
 ROUTE_REPS = 3
 
@@ -328,6 +359,7 @@ PROB_TOL = 1e-2           # max |probability - plain forward's|
 FLOW_BATCH = 8            # FlowRunner's default batch of pairs
 FLOW_WARMUP, FLOW_TIMED = 3, 10
 FLOW_TOL = 3e-2           # max |bf16 flow - f32 flow| / max |f32 flow|
+EXPORT_TOL = 1e-5         # max |exported probability - live scorer's|
 POOL_BATCH, POOL_WINDOW = 2, 8
 # training: the driver's --batch_size and default optimizer; the f32
 # comparison at a smaller batch, to hold two models' activations at once
@@ -524,29 +556,101 @@ def device_profile(fn):
     return by_name
 
 
-def traced_kernels(fn, *names, launches=None):
+class TraceDropped(Exception):
+    """Every profiler session of a trace recorded none of its kernels."""
+
+
+# traces that every profiler session dropped, timed by event_device instead
+TRACE_FALLBACKS: list = []
+# SM clock cycles the stream spins (~20 ms on an H100) while the host
+# queues the launches that event_device times
+QUEUE_AHEAD_CYCLES = 40_000_000
+
+
+def traced_kernels(fn, *names, launches=None, attempts=TRACE_ATTEMPTS):
     """{name: [device ms, launches]} of the kernels whose name holds one of
     ``names`` (any kernel without names) over one call of ``fn``. A trace
     that recorded none of them, or not ``launches`` of them, is taken again,
-    up to TRACE_ATTEMPTS times: the tracer drops a session's records now and
-    then."""
-    seen = []
-    for attempt in range(TRACE_ATTEMPTS):
+    up to ``attempts`` times: the tracer drops a session's records now and
+    then. Raises TraceDropped if no session recorded any of them, and
+    SystemExit if some did, but never ``launches``."""
+    seen, recorded = [], []
+    for attempt in range(attempts):
         if attempt:
             time.sleep(0.5)
-        hits = {k: v for k, v in device_profile(fn).items()
+        by_name = device_profile(fn)
+        hits = {k: v for k, v in by_name.items()
                 if not names or any(n in k for n in names)}
         seen.append(sum(v[1] for v in hits.values()))
+        recorded.append(sum(v[1] for v in by_name.values()))
         if hits and launches in (None, seen[-1]):
             return hits
-    raise SystemExit(f"the profiler recorded {seen} launches of the kernels "
-                     f"{names or ''} where {launches} were expected")
+    why = (f"the profiler recorded {seen} launches of the kernels "
+           f"{names or ''} where {launches} were expected (device records "
+           f"of any kind: {recorded})")
+    if not any(seen):
+        raise TraceDropped(why)
+    raise SystemExit(why)
+
+
+def wrapper_launches(names) -> int:
+    """Launches the kernel wrappers have counted so far of the kernels
+    whose profiler name is one of ``names`` (every kernel without names)."""
+    from tennis_torch.ops import dense_block as db, gru
+
+    counts = {n: db.dense_layer.variant_launches[v]
+              for v, n in DENSE_KERNELS.items()}
+    counts.update({n: gru.gru_recurrence.variant_launches[v]
+                   for v, n in GRU_KERNELS.items()})
+    return sum(c for n, c in counts.items() if not names or n in names)
+
+
+def event_device(fn, names=(), launches=None, reps=5):
+    """(device ms, launches) of one call of ``fn`` by CUDA events, median
+    of ``reps``: the stream spins (``torch.cuda._sleep``) while the host
+    queues ``fn``'s launches, so the events bracket the device's work and
+    not the host's (a host slower than the spin adds its excess). The
+    launches are the wrappers' counts over one call, checked against
+    ``launches`` where given."""
+    fn()
+    torch.cuda.synchronize()
+    times, counted = [], None
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        before = wrapper_launches(names)
+        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        counted = wrapper_launches(names) - before
+        times.append(start.elapsed_time(end))
+    if launches is not None and counted != launches:
+        raise SystemExit(f"the wrappers counted {counted} launches of the "
+                         f"kernels {names} where {launches} were expected")
+    return statistics.median(times), counted
 
 
 def kernel_device(fn, *names, launches=None):
     """(device ms, launches) of the kernels whose name holds one of
-    ``names`` over one call of ``fn``."""
-    hits = traced_kernels(fn, *names, launches=launches).values()
+    ``names`` over one call of ``fn``, from the profiler; where every
+    session of the trace dropped them (twice so far, both times at the
+    first ``[gru_kernel]`` trace), from ``event_device``, which times the
+    whole call and takes the launches from the wrappers' counts. Once a
+    trace fell back, later ones try the profiler twice: it has stayed
+    silent for the rest of the phase (every trace of ``[gru_kernel]``)."""
+    attempts = 2 if TRACE_FALLBACKS else TRACE_ATTEMPTS
+    try:
+        hits = traced_kernels(fn, *names, launches=launches,
+                              attempts=attempts).values()
+    except TraceDropped as dropped:
+        ms, n = event_device(fn, names, launches)
+        TRACE_FALLBACKS.append({"kernels": list(names), "launches": n,
+                                "event_device_ms": ms, "why": str(dropped)})
+        print(f"{dropped}; timed by CUDA events instead: {ms} ms, {n} "
+              f"launches by the wrappers' counts", file=sys.stderr, flush=True)
+        return ms, n
     return sum(v[0] for v in hits), sum(v[1] for v in hits)
 
 
@@ -1021,26 +1125,12 @@ def main_path_phase(dev):
     try:
         frames = rng.integers(0, 256, (N_REQUESTS, DATA_SHAPE, DATA_SHAPE, 3),
                               dtype=np.uint8)
-        results = [None] * N_REQUESTS
-
-        def request(i):
-            results[i] = batcher.submit(frames[i], timeout=300)
-
-        batches0 = batcher.batches
         reset_dense_counts(db)
         start = time.perf_counter()
-        threads = [threading.Thread(target=request, args=(i,))
-                   for i in range(N_REQUESTS)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
+        probs, batches = serve_frames(batcher, frames)
         wall = time.perf_counter() - start
         launches = db.dense_layer.launches
         by_variant = dict(db.dense_layer.variant_launches)
-        batches = batcher.batches - batches0
-        if any(t.is_alive() for t in threads) or any(r is None for r in results):
-            raise SystemExit("not every request was answered")
         url = "http://127.0.0.1:%d/healthz" % httpd.server_address[1]
         with urllib.request.urlopen(url, timeout=60) as r:
             health = json.loads(r.read())
@@ -1048,7 +1138,6 @@ def main_path_phase(dev):
         httpd.shutdown()
         httpd.server_close()
 
-    probs = np.stack(results)
     finite = bool(np.isfinite(probs).all())
     sums_ok = bool(np.allclose(probs.sum(-1), 1.0, atol=1e-3))
     if not (finite and sums_ok and probs.shape == (N_REQUESTS, len(classes))):
@@ -1579,6 +1668,327 @@ def flownet_phase(dev):
         peak_mem_gib=peak_gib, no_kernel_launched=clean, ok=ok)
     if not ok:
         raise SystemExit("FlowNet-S failed its gates")
+
+
+def serve_frames(batcher, frames):
+    """Every frame through ``batcher`` from its own thread; returns the
+    rows and the batches run."""
+    results = [None] * len(frames)
+
+    def request(i):
+        results[i] = batcher.submit(frames[i], timeout=300)
+
+    batches0 = batcher.batches
+    threads = [threading.Thread(target=request, args=(i,))
+               for i in range(len(frames))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads) or any(r is None for r in results):
+        raise SystemExit("not every request was answered")
+    return np.stack(results), batcher.batches - batches0
+
+
+def alternating_ms(fns, reps=10):
+    """{name: median ms of ``reps`` calls}, the calls of ``fns`` alternating
+    (after one warm-up call each)."""
+    for fn in fns.values():
+        fn()
+    times = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def export_phase(dev):
+    """``[export]``: the 0006 classifier (DenseNet121 at 512^2) from a
+    temporary experiment through ``tennis_torch.export`` at batch 8 on the
+    card: its graph, the artifact reloaded in a fresh interpreter that
+    imports no model code, 16 requests through ``serve --from_export``'s
+    ``build_service``, and the exported probabilities against the live
+    scorer's and the plain-version forward's."""
+    from tennis_torch import export, serve
+    from tennis_torch.data.transforms import device_prepare
+    from tennis_torch.inference import make_predict_probs
+    from tennis_torch.ops import dense_block as db
+
+    rng = np.random.default_rng(SEED + 50)
+    frames = rng.integers(0, 256, (N_REQUESTS, DATA_SHAPE, DATA_SHAPE, 3),
+                          dtype=np.uint8)
+    routed = routed_launches(db)
+    with tempfile.TemporaryDirectory() as work, contextlib.chdir(work):
+        model = predict_experiment(work)
+        t0 = time.perf_counter()
+        program, meta = export.export_classifier(
+            "DenseNet121", "0006", DATA_SHAPE, BATCH, root="data",
+            device=dev.type)
+        export_s = time.perf_counter() - t0
+        calls = [n for n in program.graph.nodes if n.op == "call_function"]
+        dense_nodes = [n for n in calls if str(n.target).startswith(
+            "tennis_torch.dense_layer")]
+        node_variants = {v: sum(n.args[-2] == v for n in dense_nodes)
+                         for v in db.ROUTES}
+        functionalized = sum("auto_functionalized" in str(n.target)
+                             for n in calls)
+        path = os.path.join(work, "0006.pt2")
+        export.save_exported(path, program, meta)
+        artifact_bytes = os.path.getsize(path)
+        del program
+
+        # a fresh interpreter: the two files and the op registrations only
+        np.save("frames.npy", frames[:BATCH])
+        code = (
+            "import json, sys\n"
+            "import numpy as np\n"
+            "from tennis_torch.export import load_exported\n"
+            "from tennis_torch.ops import dense_block as db\n"
+            f"_, predict, meta = load_exported({path!r})\n"
+            "np.save('fresh.npy', predict(np.load('frames.npy')))\n"
+            "print(json.dumps({'by_variant': db.dense_layer.variant_launches,"
+            " 'imported': [m for m in ('tennis_torch.models', "
+            "'tennis_torch.inference') if m in sys.modules]}))\n")
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", code], cwd=work,
+                             env={**os.environ, "PYTHONPATH": HERE},
+                             capture_output=True, text=True, timeout=600)
+        fresh_s = time.perf_counter() - t0
+        if out.returncode:
+            raise SystemExit(f"the artifact failed in a fresh interpreter:\n"
+                             f"{out.stderr[-3000:]}")
+        fresh = json.loads(out.stdout.strip().splitlines()[-1])
+        fresh_probs = np.load("fresh.npy")
+
+        # serve --from_export: the sidecar sets the batch (the flag says 2)
+        t0 = time.perf_counter()
+        handler, batcher = serve.build_service(serve.parse_args(
+            [f"--from_export={path}", "--max_wait_ms=200", "--batch_size=2"]))
+        boot_s = time.perf_counter() - t0
+        reset_kernel_counts()
+        probs, batches = serve_frames(batcher, frames)
+        dense, gru_n = kernel_counts()
+        _, exported, _ = export.load_exported(path)
+
+    live = make_predict_probs(model, dev)
+    want_live = live(frames[:BATCH])
+    got = exported(frames[:BATCH])
+    live_err = float(np.abs(got - want_live).max())
+    fresh_err = float(np.abs(fresh_probs - want_live).max())
+    served_err = float(np.abs(probs[:BATCH] - want_live).max())
+    # the plain-version logits against the exported log-probabilities, both
+    # centred (the softmax drops a logit's shift)
+    with torch.inference_mode():
+        x = device_prepare(torch.from_numpy(frames[:BATCH]).to(dev))
+        plain = db.frame_model_apply(model, x, layer=db.dense_layer_reference)
+    plain = plain.float().cpu().numpy()
+    plain -= plain.mean(-1, keepdims=True)
+    logp = np.log(got.astype(np.float64))
+    logp -= logp.mean(-1, keepdims=True)
+    logit_err = float(np.abs(logp - plain).max() / np.abs(plain).max())
+    top1 = bool((got.argmax(-1) == plain.argmax(-1)).all())
+    latency = alternating_ms({"exported": lambda: exported(frames[:BATCH]),
+                              "live": lambda: live(frames[:BATCH])})
+    want_counts = {v: n * batches for v, n in routed.items()}
+    ok = (len(dense_nodes) == 58 and functionalized == 0
+          and node_variants == routed and batcher.batch_size == BATCH
+          and meta["platforms"] == ["cuda"] and batches >= 1
+          and dense == want_counts and gru_n == 0
+          and fresh["imported"] == [] and fresh["by_variant"] == routed
+          and max(live_err, fresh_err, served_err) <= EXPORT_TOL
+          and logit_err <= LOGIT_TOL and top1)
+    log("export", data_shape=DATA_SHAPE, batch=BATCH, export_s=export_s,
+        artifact_bytes=artifact_bytes, graph_dense_layer_nodes=len(dense_nodes),
+        graph_nodes_by_variant=node_variants,
+        auto_functionalized_nodes=functionalized,
+        fresh_interpreter={"seconds": fresh_s, **fresh},
+        serve_boot_s=boot_s, requests=N_REQUESTS, batches=batches,
+        launches=sum(dense.values()), launches_by_variant=dense,
+        routed_launches_by_variant=want_counts,
+        probs_vs_live_max_abs=live_err, fresh_vs_live_max_abs=fresh_err,
+        served_vs_live_max_abs=served_err, tol=EXPORT_TOL,
+        logits_rel_err=logit_err, logit_tol=LOGIT_TOL, top1_agrees=top1,
+        batch8_latency_ms=latency, ok=ok)
+    if not ok:
+        raise SystemExit("the exported classifier failed its gates")
+    return dense
+
+
+def caption_dataset(root, vocab_words=VOCAB_WORDS, points=5):
+    """A captioning TenniSet on disk for ``export_captioner`` and
+    ``load_captioner``: one video of ``points`` points of 10 frames (the
+    frame files exist and are empty: only their presence is read), each
+    point's caption 50 of the ``vocab_words`` words, a split file, labels,
+    and the 4096-d feature of the first point's first frame (which pins
+    the feature size)."""
+    from tennis_torch.data.tennis_set import get_feature_path, get_image_path
+
+    video = "V000"
+    frames = range(10 * points)
+    for f in frames:
+        path = get_image_path(os.path.join(root, "frames"), video, f)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        open(path, "wb").close()
+    for d in ("splits/02", "annotations/labels"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    with open(os.path.join(root, "splits", "02", "train.txt"), "w") as f:
+        f.write("".join(f"{video} {i}\n" for i in frames))
+    with open(os.path.join(root, "annotations", "labels", video + ".txt"),
+              "w") as f:
+        f.write("".join(f"{i} OTH\n" for i in frames))
+    words = [f"w{i:03d}" for i in range(vocab_words)]
+    per = -(-vocab_words // points)
+    with open(os.path.join(root, "annotations", "points.txt"), "w") as f:
+        f.write("".join(f"p{p} {video} {10 * p} {10 * p + 10} 0\n"
+                        for p in range(points)))
+    with open(os.path.join(root, "annotations", "captions.txt"), "w") as f:
+        f.write("".join(f"p{p}\t{' '.join(words[p * per:(p + 1) * per])}\n"
+                        for p in range(points)))
+    path = get_feature_path(os.path.join(root, "features", "0006"), video, 0)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.save(path, np.zeros(FEAT_DIM, np.float32))
+
+
+def export_caption_phase(dev):
+    """``[export_caption]``: the 0102 captioner (random weights written as
+    ``valid_best.params`` of a temporary experiment over an on-disk caption
+    index) through ``export_captioner`` at batch 4, ``--src_max_len 128``,
+    with ``--pallas_gru`` and without, against the live ``load_captioner``
+    translator on 8 seeded sources."""
+    from tennis_torch import export
+    from tennis_torch.bridge import to_flax
+    from tennis_torch.data.tennis_set import CaptionIndex
+    from tennis_torch.inference import load_captioner
+    from tennis_torch.ops import gru
+    from tennis_torch.train_gnmt import build_model, parse_args
+    from tennis_torch.utils import checkpoint as ckpt
+
+    rng = np.random.default_rng(SEED + 51)
+    lens = rng.integers(20, SRC_MAX_LEN + 1, N_CAPTIONS).astype(np.int32)
+    src = np.zeros((N_CAPTIONS, SRC_MAX_LEN, FEAT_DIM), np.float32)
+    for i, n in enumerate(lens):
+        src[i, :n] = rng.standard_normal((n, FEAT_DIM))
+    batches = [(src[i:i + CAPTION_BATCH], lens[i:i + CAPTION_BATCH])
+               for i in range(0, N_CAPTIONS, CAPTION_BATCH)]
+    with tempfile.TemporaryDirectory() as work, contextlib.chdir(work):
+        caption_dataset("data")
+        args = parse_args(["--root=data", "--model_id=0102", *CAPTION_ARGV])
+        vocab = CaptionIndex("data", split="train", max_cap_len=50,
+                             feats_model="0006").vocab
+        model = build_model(args, len(vocab), FEAT_DIM)
+        exp = os.path.join("models", "captioning", "experiments", "0102")
+        os.makedirs(exp)
+        ckpt.save_state(os.path.join(exp, "valid_best.params"),
+                        random_flax_tree(to_flax(model), rng))
+        artifacts, export_s = {}, {}
+        for name, kernel in (("pallas_gru", True), ("default", False)):
+            t0 = time.perf_counter()
+            program, meta = export.export_captioner(
+                "0102", CAPTION_BATCH, src_max_len=SRC_MAX_LEN, root="data",
+                gnmt_argv=CAPTION_ARGV, gru_kernel=kernel, device=dev.type)
+            export_s[name] = time.perf_counter() - t0
+            nodes = sum(str(n.target).startswith("tennis_torch.gru_recurrence")
+                        for n in program.graph.nodes)
+            path = f"{name}.pt2"
+            export.save_exported(path, program, meta)
+            artifacts[name] = (export.load_exported_captioner(path)[1], nodes,
+                               os.path.getsize(path))
+            del program
+        _, live, info = load_captioner("0102", root="data",
+                                       gnmt_argv=CAPTION_ARGV,
+                                       src_max_len=SRC_MAX_LEN,
+                                       device=dev.type)
+    exported, gru_nodes, gru_bytes = artifacts["pallas_gru"]
+    default, default_nodes, default_bytes = artifacts["default"]
+    reset_kernel_counts()
+    got = [exported(*b) for b in batches]
+    launches = gru.gru_recurrence.launches
+    by_variant = dict(gru.gru_recurrence.variant_launches)
+    reset_kernel_counts()
+    got_default = [default(*b) for b in batches]
+    default_launches = gru.gru_recurrence.launches
+    want = [live(*b) for b in batches]
+    with plain_gru():
+        want_plain = [live(*b) for b in batches]
+    routed = gru.gru_route(SRC_MAX_LEN, CAPTION_BATCH, args.num_hidden)
+    latency = alternating_ms({"exported_pallas_gru": lambda: exported(
+        *batches[0]), "exported_default": lambda: default(*batches[0]),
+        "live": lambda: live(*batches[0])}, reps=5)
+    ok = (gru_nodes == 3 and default_nodes == 0
+          and launches == 3 * len(batches) and by_variant[routed] == launches
+          and default_launches == 0 and got == want
+          and got_default == want_plain)
+    log("export_caption", batch=CAPTION_BATCH, src_max_len=SRC_MAX_LEN,
+        sources=N_CAPTIONS, lengths=lens.tolist(), vocab=len(vocab),
+        max_length=info["max_length"], export_s=export_s,
+        artifact_bytes={"pallas_gru": gru_bytes, "default": default_bytes},
+        graph_gru_nodes={"pallas_gru": gru_nodes, "default": default_nodes},
+        gru_launches=launches, gru_launches_by_variant=by_variant,
+        default_gru_launches=default_launches,
+        top_beams_equal_live=got == want,
+        default_top_beams_equal_live_plain_recurrence=got_default == want_plain,
+        tokens_per_caption=[len(t) for b in got for t in b],
+        ms_per_batch=latency, ok=ok)
+    if not ok:
+        raise SystemExit("the exported captioner failed its gates")
+    return by_variant
+
+
+def native_phase():
+    """``[native]``: which native host libraries built on this machine;
+    with libjpeg, a seeded 1280x720 JPEG decoded natively and by cv2 at
+    full size (the largest pixel difference; ms a decode) and a 2160-line
+    one at ``min_short`` 544 (the 1/2 DCT scale). Nothing is gated: a
+    machine without libjpeg takes cv2, the JAX package's own fallback."""
+    from tennis_torch import native
+    from tennis_torch.native import jpeg
+
+    fields = {"have_native": native.HAVE_NATIVE,
+              "have_native_jpeg": jpeg.HAVE_NATIVE_JPEG,
+              "built": sorted(native.built)}
+    if native.HAVE_NATIVE:
+        rng = np.random.default_rng(SEED + 52)
+        sents = [list(rng.integers(0, 250, rng.integers(6, 21)))
+                 for _ in range(10_300)]
+        t0 = time.perf_counter()
+        centers, _ = native.center_context_pairs(sents, 3, 1)
+        fields["pairs"] = {"n": len(centers),
+                           "ms": (time.perf_counter() - t0) * 1e3}
+    if jpeg.HAVE_NATIVE_JPEG:
+        import cv2
+
+        rng = np.random.default_rng(SEED + 53)
+
+        def encoded(h, w):
+            img = cv2.resize(rng.integers(0, 256, (h // 16, w // 16, 3),
+                                          np.uint8), (w, h),
+                             interpolation=cv2.INTER_CUBIC)
+            return cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 90])[
+                1].tobytes()
+
+        small, large = encoded(720, 1280), encoded(2160, 3840)
+
+        def by_cv2(data):
+            return cv2.cvtColor(cv2.imdecode(np.frombuffer(data, np.uint8),
+                                             cv2.IMREAD_COLOR),
+                                cv2.COLOR_BGR2RGB)
+
+        diff = int(np.abs(jpeg.decode_jpeg(small).astype(np.int16)
+                          - by_cv2(small)).max())
+        ms = alternating_ms({
+            "native_720p": lambda: jpeg.decode_jpeg(small),
+            "cv2_720p": lambda: by_cv2(small),
+            "native_2160p_min_short_544": lambda: jpeg.decode_jpeg(large, 544),
+            "cv2_2160p": lambda: by_cv2(large)}, reps=10)
+        fields.update(cv2=cv2.__version__, max_pixel_diff_720p=diff,
+                      half_scale_shape=list(jpeg.decode_jpeg(large, 544).shape),
+                      decode_ms=ms)
+    else:
+        fields["jpeg"] = ("libjpeg or its headers are missing here: JPEGs "
+                          "decode through cv2, the reference's host fallback")
+    log("native", **fields)
 
 
 def train_flops(batch, side=DATA_SHAPE, blocks=(6, 12, 24, 16), classes=11):
@@ -2488,10 +2898,13 @@ def gru_phase(dev):
                 device_ms = kernel_device(call, GRU_KERNELS[variant],
                                           launches=1)[0]
                 steps = T if variant == "barrier" else t_live
+                # the fallback's clock beside the profiler's, each run
+                event_ms = event_device(call, (GRU_KERNELS[variant],), 1)[0]
                 by_key[key] = {"max_abs_err": err, "finite": finite,
                                "zero_past_length": frozen, "ok": v_ok,
                                "ms": time_ms(call, reps=20),
-                               "device_ms": device_ms, "steps": steps,
+                               "device_ms": device_ms,
+                               "event_device_ms": event_ms, "steps": steps,
                                "us_per_step": device_ms / max(steps, 1) * 1e3}
             plain_ms = time_ms(
                 lambda: gru.gru_recurrence_reference(gx, h0, wh, bh, vl),
@@ -4038,6 +4451,7 @@ def skipgram_phase(root):
     # the mean loss of a fixed sample of the epoch's pairs, with fixed
     # negatives, at the trainer's initial parameters and at its last
     from tennis_torch.models.skipgram import SkipGram
+    from tennis_torch.native import center_context_pairs
 
     dev = params["embedding"].device
     model = SkipGram(len(vocab), args.ngram_buckets, args.emb_size,
@@ -4046,8 +4460,8 @@ def skipgram_phase(root):
     coded = [[vocab[t] for t in sent if t in vocab] for sent in
              train_embeddings.load_corpus(root, True)]
     centers, contexts = (torch.from_numpy(a[:SKIPGRAM_PROBE]).to(dev) for a
-                         in train_embeddings.center_context_pairs(
-                             coded, args.window, args.seed + 1))
+                         in center_context_pairs(coded, args.window,
+                                                 args.seed + 1))
     negatives = model.sample_negatives(
         torch.Generator(device=dev).manual_seed(SEED + 41), len(centers))
     initial = model.init_params(
@@ -4484,8 +4898,21 @@ def build_phase():
         except Exception as e:  # reported below, the run fails
             errors[name] = e
 
+    def host_libraries():
+        # the native host libraries (c++; a missing compiler or libjpeg
+        # leaves the numpy and cv2 fallbacks, as in the JAX package)
+        from tennis_torch import native
+        from tennis_torch.native import jpeg
+
+        t = time.perf_counter()
+        have = {"batch_ops": native.HAVE_NATIVE,
+                "jpeg_decode": jpeg.HAVE_NATIVE_JPEG}
+        host["seconds"], host["built"] = time.perf_counter() - t, have
+
+    host = {}
     t0 = time.perf_counter()
     threads = [threading.Thread(target=go, args=(n,)) for n in KERNELS]
+    threads.append(threading.Thread(target=host_libraries))
     for t in threads:
         t.start()
     for t in threads:
@@ -4493,6 +4920,7 @@ def build_phase():
     wall = time.perf_counter() - t0
     if errors:
         raise SystemExit(f"kernel build failed: {errors}")
+    log("build", native=host)
     for name in KERNELS:
         seconds, report = _build.build_info[name]
         log("build", kernel=name, seconds=seconds, wall_s=wall,
@@ -4532,8 +4960,9 @@ def dense_entry(name, variant, stack, launches, max_abs):
         "library_ms": sum(r["library_ms"] for r in mine),
         "work": work + "; launches count the /predict batches served and the "
                        "[extract], [evaluate], [predict] and [train_driver] "
-                       "runs and the evaluation forwards of [two_stream] and "
-                       "[cnnrnn_clips]",
+                       "runs, the evaluation forwards of [two_stream] and "
+                       "[cnnrnn_clips], and the requests served from the "
+                       "exported program in [export]",
     }
 
 
@@ -4559,10 +4988,11 @@ def gru_entry(name, variant, rows, launches, max_abs):
         else row["barrier_serial_floor_ms"],
         "work": f"one GRU recurrence of the 0102 encoder: T {T}, batch {B}, "
                 f"H {H}, lengths {lengths} ({key}); launches count the "
-                f"/caption batches served and the per-epoch and evaluate_gnmt "
-                f"decodes of [caption_driver]; library_ms (cuDNN nn.GRU) and "
-                f"layer_ms (the port) cover the whole layer from {FEAT_DIM} "
-                f"features at full length",
+                f"/caption batches served, the per-epoch and evaluate_gnmt "
+                f"decodes of [caption_driver] and the --pallas_gru exported "
+                f"program's batches in [export_caption]; library_ms (cuDNN "
+                f"nn.GRU) and layer_ms (the port) cover the whole layer from "
+                f"{FEAT_DIM} features at full length",
     }
 
 
@@ -4628,6 +5058,13 @@ def main() -> int:
     counts = predict_phase(torch.device("cuda"))
     launches = {v: launches[v] + counts[v] for v in launches}
     flownet_phase(torch.device("cuda"))
+    # the exported programs, through the same kernels as the live paths
+    counts = export_phase(torch.device("cuda"))
+    launches = {v: launches[v] + counts[v] for v in launches}
+    counts = export_caption_phase(torch.device("cuda"))
+    gru_launches = {v: gru_launches[v] + counts[v] for v in gru_launches}
+    native_phase()
+    log("trace_fallbacks", count=len(TRACE_FALLBACKS), traces=TRACE_FALLBACKS)
     log("route_summary", routed_is_fastest_by_batch={
         b: {"fastest": a, "shapes": n} for b, (a, n) in agree.items()})
 

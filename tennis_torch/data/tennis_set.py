@@ -3,9 +3,11 @@
 events, seeded class balancing, windows, frame and feature loading, feature
 dump paths) and, with ``captions=True``, for the captioner (the split's
 points, the caption vocabulary, caption ids, bucketing lengths); and the
-caption index ``CaptionIndex`` that the ``/caption`` service reads. In-band
-frame extraction from the source videos (``extract_missing``) and the
-native DCT-scaled JPEG decode are not ported yet.
+caption index ``CaptionIndex`` that the ``/caption`` service reads. JPEGs
+decode through the port's copy of the native libjpeg path
+(``tennis_torch/native/jpeg.py``) first, as in the JAX package. In-band
+frame extraction from the source videos (``extract_missing``) is not
+ported yet.
 
 On-disk conventions, as in the JAX package:
 
@@ -158,11 +160,15 @@ class CaptionIndex:
 
 
 def _read_image_rgb(path: str, min_short: int | None = None) -> np.ndarray:
-    """RGB uint8 read with cv2, at full size. ``min_short`` is the bound the
-    JAX package's native libjpeg path gives its DCT-scaled decode of
-    sources at least twice that size; the port decodes them whole (the
-    native decoder waits for a later slice), which is bit-identical with it
-    below that size."""
+    """RGB uint8 read. JPEGs go through the native libjpeg path (bit-exact
+    with cv2's decode; sources at least twice ``min_short`` decode at a
+    1/2^k DCT scale bounded by it), anything else, or a missing native
+    toolchain, through cv2, as the JAX package reads them."""
+    from tennis_torch.native.jpeg import decode_jpeg_file
+
+    img = decode_jpeg_file(path, min_short)
+    if img is not None:
+        return img
     import cv2
 
     img = cv2.imread(path, cv2.IMREAD_COLOR)

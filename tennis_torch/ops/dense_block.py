@@ -30,8 +30,12 @@ its counterpart here is ``dense_layer_convs``, two ``F.conv2d`` calls, which
 the route names ``"convs"`` from the widths alone.
 
 Beside the kernels sits their plain PyTorch version, ``dense_layer_reference``.
-``dense_layer`` takes the plain version only for a tensor on the CPU; for a
-CUDA tensor it launches one of the kernels or raises.
+The launch is the ``torch.library`` custom op ``tennis_torch::dense_layer``
+(:func:`dense_layer_op`: it mutates the state in place, so ``torch.export``
+keeps one node per layer), whose CUDA implementation launches the kernel
+its ``variant`` names or raises and whose CPU implementation is the plain
+version. ``dense_layer`` resolves the variant from the static shapes and
+calls the op, for a live forward and a traced one alike.
 
 ``densenet_features`` drives the whole feature extractor: stem, transitions
 and the final BN/pool are plain torch ops, every dense layer goes through
@@ -45,6 +49,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -363,47 +368,47 @@ def _launcher(variant):
     return fn
 
 
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def dense_layer(state: torch.Tensor, c_in: int, ops: LayerOperands,
-                variant: str | None = None,
-                cluster: int | None = None) -> torch.Tensor:
-    """One dense layer in place: reads channels ``[0, c_in)`` of the NHWC
-    block state, writes its growth part to ``[c_in, c_in + G)``; returns
-    ``state``. CUDA tensors go through the kernel that ``variant`` names
-    (``"persistent"``, ``"tile"`` or ``"cluster"``, with ``cluster`` CTAs per
-    tile, for a bf16 state; ``"f32"`` for an f32 one; by default
-    :func:`dense_layer_route`'s choice by the state's dtype, which is
-    :func:`dense_layer_convs` for widths no kernel takes); CPU tensors
-    through :func:`dense_layer_reference`, whatever the variant."""
-    if variant is not None and variant not in KERNEL_VARIANTS:
-        raise ValueError(f"dense_layer variant must be one of "
-                         f"{KERNEL_VARIANTS}, not {variant!r}")
-    if state.device.type == "cpu":
-        return dense_layer_reference(state, c_in, ops)
-    if state.device.type != "cuda":
-        raise ValueError(f"dense_layer runs on cuda or cpu, not {state.device}")
-    B, H, W, C = state.shape
-    if variant is None:
-        variant, routed = dense_layer_route(B, H, W, c_in, ops.w1.shape[0],
-                                            ops.w2.shape[2], state.dtype)
-        cluster = cluster or routed
-        if variant == "convs":
-            dense_layer_convs(state, c_in, ops)
-            dense_layer.variant_launches["convs"] += 1
-            return state
+@torch.library.custom_op("tennis_torch::dense_layer", mutates_args={"state"},
+                         device_types="cpu")
+def dense_layer_op(state: torch.Tensor, inv1: torch.Tensor, sh1: torch.Tensor,
+                   w1: torch.Tensor, inv2: torch.Tensor, sh2: torch.Tensor,
+                   w2: torch.Tensor, w1_tf32: torch.Tensor | None,
+                   w2_tf32: torch.Tensor | None, c_in: int, variant: str,
+                   cluster: int) -> None:
+    """``tennis_torch::dense_layer``: one dense layer in place on ``state``,
+    as a custom op, so that ``torch.export`` keeps it as one node naming its
+    kernel. ``variant`` and ``cluster`` (0 where the variant takes none) are
+    :func:`dense_layer_route`'s; ``w1_tf32``/``w2_tf32`` are the f32
+    kernel's weight images (:func:`_tf32_weights`), None for the others.
+    On the CPU it runs :func:`dense_layer_reference`, whatever the
+    variant."""
+    dense_layer_reference(state, c_in,
+                          LayerOperands(inv1, sh1, w1, inv2, sh2, w2))
+
+
+@dense_layer_op.register_kernel("cuda")
+def _dense_layer_cuda(state, inv1, sh1, w1, inv2, sh2, w2, w1_tf32, w2_tf32,
+                      c_in, variant, cluster):
+    """The launch: the kernel ``variant`` names, or a raise; no fallback."""
+    ops = LayerOperands(inv1, sh1, w1, inv2, sh2, w2)
     _check_kernel_args(state, c_in, ops, variant)
-    w1, w2 = _tf32_weights(ops) if variant == "f32" else (ops.w1, ops.w2)
-    args = [state.data_ptr(), ops.inv1.data_ptr(), ops.sh1.data_ptr(),
-            w1.data_ptr(), ops.inv2.data_ptr(), ops.sh2.data_ptr(),
-            w2.data_ptr(), B, H, W, C, c_in, BOTTLENECK, GROWTH]
+    if variant == "f32":
+        if w1_tf32 is None or w2_tf32 is None:
+            raise ValueError("dense_layer f32 kernel takes the weight images "
+                             "of _tf32_weights")
+        w1, w2 = w1_tf32, w2_tf32
+    B, H, W, C = state.shape
+    args = [state.data_ptr(), inv1.data_ptr(), sh1.data_ptr(), w1.data_ptr(),
+            inv2.data_ptr(), sh2.data_ptr(), w2.data_ptr(),
+            B, H, W, C, c_in, BOTTLENECK, GROWTH]
     if variant == "persistent":
-        args.append(_sm_count(state.device))
+        args.append(_sm_count(state.device.index))
     elif variant == "cluster":
-        if cluster is None:
-            cluster = dense_layer_cluster_size(B, H, W, c_in)
         args.append(cluster)
     stream = torch.cuda.current_stream(state.device).cuda_stream
     with torch.cuda.device(state.device):
@@ -414,6 +419,51 @@ def dense_layer(state: torch.Tensor, c_in: int, ops: LayerOperands,
                            f"CUDA error {err}")
     dense_layer.launches += 1
     dense_layer.variant_launches[variant] += 1
+
+
+@dense_layer_op.register_fake
+def _(state, inv1, sh1, w1, inv2, sh2, w2, w1_tf32, w2_tf32, c_in, variant,
+      cluster):
+    return None
+
+
+def dense_layer(state: torch.Tensor, c_in: int, ops: LayerOperands,
+                variant: str | None = None,
+                cluster: int | None = None) -> torch.Tensor:
+    """One dense layer in place: reads channels ``[0, c_in)`` of the NHWC
+    block state, writes its growth part to ``[c_in, c_in + G)``; returns
+    ``state``. The kernel widths go through :func:`dense_layer_op`: CUDA
+    tensors to the kernel that ``variant`` names (``"persistent"``,
+    ``"tile"`` or ``"cluster"``, with ``cluster`` CTAs per tile, for a bf16
+    state; ``"f32"`` for an f32 one; by default :func:`dense_layer_route`'s
+    choice by the state's dtype), CPU tensors to
+    :func:`dense_layer_reference`, whatever the variant. The variant and
+    the cluster size are resolved here from the static shapes, so a traced
+    graph names the kernel it launches. Widths no kernel takes go to
+    :func:`dense_layer_convs` on the card (the reference on the CPU),
+    outside the op."""
+    if variant is not None and variant not in KERNEL_VARIANTS:
+        raise ValueError(f"dense_layer variant must be one of "
+                         f"{KERNEL_VARIANTS}, not {variant!r}")
+    if state.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"dense_layer runs on cuda or cpu, not {state.device}")
+    B, H, W, _ = state.shape
+    if variant is None:
+        variant, routed = dense_layer_route(B, H, W, c_in, ops.w1.shape[0],
+                                            ops.w2.shape[2], state.dtype)
+        cluster = cluster or routed
+        if variant == "convs":
+            if state.device.type == "cpu":
+                return dense_layer_reference(state, c_in, ops)
+            dense_layer_convs(state, c_in, ops)
+            dense_layer.variant_launches["convs"] += 1
+            return state
+    if variant == "cluster" and cluster is None:
+        cluster = dense_layer_cluster_size(B, H, W, c_in)
+    images = (None, None)
+    if variant == "f32" and state.device.type == "cuda":
+        images = _tf32_weights(ops)
+    dense_layer_op(state, *ops, *images, c_in, variant, cluster or 0)
     return state
 
 

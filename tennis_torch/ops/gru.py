@@ -15,10 +15,12 @@ recurrence, which one launch runs for all T steps. Two kernels compute it:
 
 ``gru_recurrence`` routes each (T, B, H) to the variant the card measured
 fastest (``gru_route``). Beside the kernels sits their plain PyTorch
-version, ``gru_recurrence_reference``. ``gru_recurrence`` takes the plain
-version only for tensors on the CPU; for CUDA tensors it launches a kernel
-or raises. The kernels are forward-only, like the TPU one: with a gradient
-required they raise.
+version, ``gru_recurrence_reference``. The launch is the ``torch.library``
+custom op ``tennis_torch::gru_recurrence`` (:func:`gru_recurrence_op`),
+whose CUDA implementation launches a kernel or raises and whose CPU
+implementation is the plain version; ``torch.export`` keeps it as one node.
+The kernels are forward-only, like the TPU one: on the card, with a
+gradient required, the wrapper raises.
 """
 from __future__ import annotations
 
@@ -212,10 +214,6 @@ def _check_kernel_args(gates_x, h0, wh, bh, valid_length):
         if t.device != gates_x.device:
             raise ValueError(f"gru_recurrence kernel: {name} must be on "
                              f"{gates_x.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (gates_x, h0, wh, bh)):
-        raise RuntimeError("gru_recurrence kernel is forward-only: run it "
-                           "under torch.inference_mode() or torch.no_grad()")
     if gates_x.dim() != 3:
         raise ValueError("gru_recurrence kernel takes gates_x (T, B, 3H)")
     T, B, G = gates_x.shape
@@ -248,38 +246,31 @@ def _launcher(variant):
     return fn
 
 
-def gru_recurrence(gates_x, h0, wh, bh, valid_length=None,
-                   variant: str | None = None, cluster: int | None = None):
-    """GRU recurrence over precomputed input gates (see
-    :func:`gru_recurrence_reference` for the function). CUDA tensors go
-    through the kernel that ``variant`` names (``"async"`` or
-    ``"barrier"``; by default :func:`gru_route`'s choice), the async one
-    with ``cluster`` CTAs per chunk of rows (by default :func:`gru_plan`'s);
-    CPU tensors through the plain version, whatever the variant.
+@torch.library.custom_op("tennis_torch::gru_recurrence", mutates_args=(),
+                         device_types="cpu")
+def gru_recurrence_op(gates_x: torch.Tensor, h0: torch.Tensor,
+                      wh: torch.Tensor, bh: torch.Tensor,
+                      valid_length: torch.Tensor, variant: str,
+                      cluster: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``tennis_torch::gru_recurrence``: the recurrence as a custom op, so
+    that ``torch.export`` keeps it as one node naming its kernel. Returns a
+    contiguous batch-major ``ys`` (B, T, H) and ``h_final`` (B, H), new
+    tensors (an op's output may alias no input). ``variant`` is
+    :func:`gru_route`'s, ``cluster`` the async kernel's cluster size (0:
+    :func:`gru_plan`'s). On the CPU it runs
+    :func:`gru_recurrence_reference`, whatever the variant."""
+    ys, h_final = gru_recurrence_reference(gates_x, h0, wh, bh, valid_length)
+    return ys.transpose(0, 1).contiguous(), h_final
 
-    Returns (ys (T, B, H), h_final (B, H)) f32. On the card ``ys`` is a
-    (T, B, H) view of a batch-major (B, T, H) buffer, so ``ys.transpose(0,
-    1)`` is contiguous.
-    """
-    if variant is not None and variant not in VARIANTS:
-        raise ValueError(f"gru_recurrence variant must be one of {VARIANTS}, "
-                         f"not {variant!r}")
-    if gates_x.device.type == "cpu":
-        return gru_recurrence_reference(gates_x, h0, wh, bh, valid_length)
-    if gates_x.device.type != "cuda":
-        raise ValueError(f"gru_recurrence runs on cuda or cpu, not "
-                         f"{gates_x.device}")
+
+@gru_recurrence_op.register_kernel("cuda")
+def _gru_recurrence_cuda(gates_x, h0, wh, bh, valid_length, variant, cluster):
+    """The launch: the kernel ``variant`` names, or a raise; no fallback."""
+    _check_kernel_args(gates_x, h0, wh, bh, valid_length)
     T, B, G = gates_x.shape
     H = G // 3
-    if valid_length is None:
-        valid_length = torch.full((B,), T, dtype=torch.int32,
-                                  device=gates_x.device)
-    valid_length = valid_length.to(device=gates_x.device,
-                                   dtype=torch.int32).contiguous()
-    _check_kernel_args(gates_x, h0, wh, bh, valid_length)
-    variant = variant or gru_route(T, B, H)
     if variant == "async":
-        plan = gru_plan(H, B, cluster)
+        plan = gru_plan(H, B, cluster or None)
         if plan is None:
             raise ValueError(
                 f"gru_recurrence async kernel: hidden size {H} is beyond its "
@@ -296,9 +287,10 @@ def gru_recurrence(gates_x, h0, wh, bh, valid_length=None,
                 f"{3 * H // CLUSTER} columns of Wh plus the h buffers in "
                 f"{SMEM_LIMIT} B per CTA; this H needs {need} B)")
         partition = _split(H, B)
-    ys = torch.empty((B, T, H), dtype=torch.float32,
-                     device=gates_x.device).transpose(0, 1)
+    out = torch.empty((B, T, H), dtype=torch.float32, device=gates_x.device)
+    ys = out.transpose(0, 1)
     h_final = torch.empty((B, H), dtype=torch.float32, device=gates_x.device)
+    valid_length = valid_length.to(torch.int32).contiguous()
     stream = torch.cuda.current_stream(gates_x.device).cuda_stream
     with torch.cuda.device(gates_x.device):
         err = _launcher(variant)(
@@ -312,7 +304,51 @@ def gru_recurrence(gates_x, h0, wh, bh, valid_length=None,
                            f"CUDA error {err}")
     gru_recurrence.launches += 1
     gru_recurrence.variant_launches[variant] += 1
-    return ys, h_final
+    return out, h_final
+
+
+@gru_recurrence_op.register_fake
+def _(gates_x, h0, wh, bh, valid_length, variant, cluster):
+    T, B, G = gates_x.shape
+    return (gates_x.new_empty((B, T, G // 3), dtype=torch.float32),
+            gates_x.new_empty((B, G // 3), dtype=torch.float32))
+
+
+def gru_recurrence(gates_x, h0, wh, bh, valid_length=None,
+                   variant: str | None = None, cluster: int | None = None):
+    """GRU recurrence over precomputed input gates (see
+    :func:`gru_recurrence_reference` for the function), through
+    :func:`gru_recurrence_op`: CUDA tensors go through the kernel that
+    ``variant`` names (``"async"`` or ``"barrier"``; by default
+    :func:`gru_route`'s choice, resolved here from the static shapes), the
+    async one with ``cluster`` CTAs per chunk of rows (by default
+    :func:`gru_plan`'s); CPU tensors through the plain version, whatever
+    the variant. On the card a gradient may not be required: the kernels
+    are forward-only.
+
+    Returns (ys (T, B, H), h_final (B, H)) f32; ``ys`` is a (T, B, H) view
+    of a batch-major (B, T, H) buffer, so ``ys.transpose(0, 1)`` is
+    contiguous.
+    """
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError(f"gru_recurrence variant must be one of {VARIANTS}, "
+                         f"not {variant!r}")
+    if gates_x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gru_recurrence runs on cuda or cpu, not "
+                         f"{gates_x.device}")
+    T, B, G = gates_x.shape
+    if gates_x.device.type == "cuda" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (gates_x, h0, wh, bh)):
+        raise RuntimeError("gru_recurrence kernel is forward-only: run it "
+                           "under torch.inference_mode() or torch.no_grad()")
+    if valid_length is None:
+        valid_length = torch.full((B,), T, dtype=torch.int32,
+                                  device=gates_x.device)
+    valid_length = valid_length.to(device=gates_x.device, dtype=torch.int32)
+    variant = variant or gru_route(T, B, G // 3)
+    ys, h_final = gru_recurrence_op(gates_x, h0, wh, bh, valid_length,
+                                    variant, cluster or 0)
+    return ys.transpose(0, 1), h_final
 
 
 # kernel launches, so a run can show it took a kernel, and which one

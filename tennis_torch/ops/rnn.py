@@ -17,7 +17,8 @@ matmul. Then, as in the JAX package, the recurrence takes one of two paths:
   raises, on either device;
 - everywhere else (training, the per-epoch loss, every LSTM) a plain
   differentiable per-step recurrence, the counterpart of the JAX
-  ``_RecurrentStep`` scan, which autograd goes through.
+  ``_RecurrentStep`` scan, which autograd goes through; under
+  ``torch.export`` a GRU's runs the same steps as one ``while_loop``.
 
 The context decides the path; no path catches a kernel failure.
 
@@ -156,18 +157,49 @@ def _lstm_recurrence(gates_x, h2h, carry, valid_length):
     return torch.stack(ys), (h, c)
 
 
+def _gru_step(gx_t, h2h, h, alive):
+    """One masked GRU step: h2h(h), the gates, the carry frozen and the
+    output zero where ``alive`` (B, 1) is False; (carry, output)."""
+    new_h = _gru_gates(gx_t, h2h(h), h)
+    return (torch.where(alive, new_h, h),
+            torch.where(alive, new_h, torch.zeros_like(new_h)))
+
+
 def _gru_recurrence(gates_x, h2h, h, valid_length):
     """Plain differentiable GRU loop over (T, B, 3H) input gates with masked
-    carries, step by step as the JAX ``_RecurrentStep`` scan: h2h(h), the
-    gates, the carry frozen and the output zero past ``valid_length``;
-    ``h2h`` maps the carry to its gates."""
+    carries, step by step as the JAX ``_RecurrentStep`` scan; ``h2h`` maps
+    the carry to its gates. Under ``torch.export`` the same steps run as one
+    ``while_loop`` (:func:`_gru_recurrence_loop`), so that a traced program
+    holds one step, not T."""
+    if torch.compiler.is_exporting():
+        return _gru_recurrence_loop(gates_x, h2h, h, valid_length)
     ys = []
     for t in range(gates_x.shape[0]):
-        new_h = _gru_gates(gates_x[t], h2h(h), h)
-        alive = (t < valid_length)[:, None]
-        h = torch.where(alive, new_h, h)
-        ys.append(torch.where(alive, new_h, torch.zeros_like(new_h)))
+        h, y = _gru_step(gates_x[t], h2h, h, (t < valid_length)[:, None])
+        ys.append(y)
     return torch.stack(ys), h
+
+
+def _gru_recurrence_loop(gates_x, h2h, h, valid_length):
+    """:func:`_gru_recurrence` as a ``torch._higher_order_ops.while_loop``
+    over t, the counterpart of the JAX scan in a traced program: the same
+    steps, bit for bit (forward only)."""
+    from torch._higher_order_ops import while_loop
+
+    T = gates_x.shape[0]
+
+    def cond(t, h, ys):
+        return t < T
+
+    def body(t, h, ys):
+        h, y = _gru_step(gates_x.index_select(0, t[None])[0], h2h, h,
+                         (t < valid_length)[:, None])
+        return t + 1, h, ys.index_copy(0, t[None], y[None])
+
+    t0 = torch.zeros((), dtype=torch.int64, device=gates_x.device)
+    ys = torch.zeros((T,) + tuple(h.shape), dtype=h.dtype, device=h.device)
+    _, h, ys = while_loop(cond, body, (t0, h, ys))
+    return ys, h
 
 
 class RNNLayer(nn.Module):

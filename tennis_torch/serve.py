@@ -13,9 +13,9 @@ API:
 - ``POST /caption`` — body: ``np.save`` bytes of a float (T, D) frame-feature
   sequence -> ``{"caption": str, "tokens": [str], "frames_used": int}``.
   Mounted when ``--caption_model_id`` names a captioning experiment
-  (features path); sequences are truncated or zero-padded to
-  ``--src_max_len`` and coalesced by their own batcher into beam decodes of
-  ``--caption_batch_size`` rows.
+  (features path) or ``--caption_from_export`` a captioner artifact;
+  sequences are truncated or zero-padded to ``--src_max_len`` and coalesced
+  by their own batcher into beam decodes of ``--caption_batch_size`` rows.
 - ``GET /healthz``  — liveness + counters (requests served, batches run, mean
   rows per batch; caption counters when mounted)
 
@@ -23,12 +23,17 @@ Batching: requests park in a queue; one dispatcher thread drains up to
 ``--batch_size`` of them (waiting at most ``--max_wait_ms`` after the first),
 edge-pads to the static batch shape, runs the model once, and wakes each
 waiter with its row. One consumer thread means the model needs no lock.
+Decode uses the native libjpeg path (DCT-domain downscale) with a cv2
+fallback, like the training loader.
 
 Run: ``python -m tennis_torch.serve --model_id 0006 --backbone DenseNet121
 --port 8000`` (on the GPU; ``--device cpu`` to run on the CPU), adding
 ``--caption_model_id 0102 --gnmt_flag=--feats_model=0006
---gnmt_flag=--num_hidden=256`` to mount ``/caption``. ``--from_export``,
-``--caption_from_export`` and the native libjpeg decoder are not ported yet.
+--gnmt_flag=--num_hidden=256`` to mount ``/caption``; or from
+``tennis_torch.export`` artifacts with no model code or checkpoint:
+``python -m tennis_torch.serve --from_export 0006.pt2
+[--caption_from_export 0102.pt2]`` (the sidecars pin the static batches,
+the crop side and the source length; the artifact names its device).
 """
 from __future__ import annotations
 
@@ -51,15 +56,20 @@ _MAX_BODY = 32 * 2**20  # reject absurd uploads before reading them
 
 def decode_rgb(data: bytes, data_shape: int) -> np.ndarray:
     """JPEG bytes -> uint8 RGB after the eval geometry (Resize+32,
-    CenterCrop), decoded with cv2."""
-    import cv2
-
+    CenterCrop). The native libjpeg path first (DCT-domain downscale for
+    oversized sources, as the training loader), cv2.imdecode for anything
+    else."""
     from tennis_torch.data.transforms import test_geometry
+    from tennis_torch.native.jpeg import decode_jpeg
 
-    bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
-    if bgr is None:
-        raise ValueError("body is not a decodable image")
-    rgb = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+    rgb = decode_jpeg(data, min_short=data_shape + 32)
+    if rgb is None:
+        import cv2
+
+        bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+        if bgr is None:
+            raise ValueError("body is not a decodable image")
+        rgb = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
     h, w = rgb.shape[:2]
     # resize_shorter scales the LONG side by data_shape/short: a degenerate
     # 1xN image would ask cv2 for a multi-GB buffer before failing
@@ -272,7 +282,7 @@ def make_service(classes, predict_probs, batch_size: int, data_shape: int,
             if cap_batcher is None:
                 return self._reply(404, {
                     "error": "no captioner mounted (start with "
-                             "--caption_model_id)"})
+                             "--caption_model_id or --caption_from_export)"})
             body = self._read_body()
             if body is None:
                 return
@@ -318,23 +328,49 @@ def make_service(classes, predict_probs, batch_size: int, data_shape: int,
 
 
 def build_service(args: argparse.Namespace):
-    """Load the experiment's best checkpoint and return (handler_cls,
-    batcher)."""
-    from tennis_torch.inference import load_captioner, load_classifier
+    """Load the experiment's best checkpoint, or the ``--from_export``
+    artifact, and return (handler_cls, batcher)."""
+    if args.from_export:
+        # the program and its sidecar are the model: its geometry is fixed,
+        # so the sidecar (not the flags) sets the batch and crop side
+        from tennis_torch.export import load_exported
 
-    classes, predict_probs, _info = load_classifier(
-        args.backbone, args.model_id, args.data_shape, args.root,
-        device=args.device)
+        classes, predict_probs, meta = load_exported(args.from_export)
+        batch_size, data_shape = meta["batch_size"], meta["data_shape"]
+        if (batch_size, data_shape) != (args.batch_size, args.data_shape):
+            log.info("export sidecar overrides flags: batch_size=%d "
+                     "data_shape=%d (artifact %s, experiment %s epoch %d)",
+                     batch_size, data_shape, args.from_export,
+                     meta["model_id"], meta["epoch"])
+    else:
+        from tennis_torch.inference import load_classifier
+
+        classes, predict_probs, _info = load_classifier(
+            args.backbone, args.model_id, args.data_shape, args.root,
+            device=args.device)
+        batch_size, data_shape = args.batch_size, args.data_shape
     captioner = None
-    if args.caption_model_id:
+    if args.caption_from_export:
+        from tennis_torch.export import load_exported_captioner
+
+        _toks, caption_fn, cmeta = load_exported_captioner(
+            args.caption_from_export)
+        captioner = Captioner(caption_fn, cmeta["feat_dim"],
+                              cmeta["src_max_len"], cmeta["batch_size"])
+        if cmeta["batch_size"] != args.caption_batch_size:
+            log.info("captioner sidecar overrides flags: batch_size=%d "
+                     "src_max_len=%d", cmeta["batch_size"],
+                     cmeta["src_max_len"])
+    elif args.caption_model_id:
+        from tennis_torch.inference import load_captioner
+
         _vocab, caption_fn, info = load_captioner(
             args.caption_model_id, root=args.root, gnmt_argv=args.gnmt_flag,
             src_max_len=args.src_max_len, device=args.device)
         captioner = Captioner(caption_fn, info["feat_dim"], args.src_max_len,
                               args.caption_batch_size)
-    return make_service(classes, predict_probs, args.batch_size,
-                        args.data_shape, args.max_wait_ms,
-                        args.request_timeout_s, captioner)
+    return make_service(classes, predict_probs, batch_size, data_shape,
+                        args.max_wait_ms, args.request_timeout_s, captioner)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -369,8 +405,19 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "sequences are truncated/padded to this many frames")
     p.add_argument("--caption_batch_size", type=int, default=4,
                    help="Static device batch for /caption coalescing")
+    p.add_argument("--from_export", default="",
+                   help="Path to a tennis_torch.export artifact: serve "
+                        "/predict from the saved program (no model code or "
+                        "checkpoint; --backbone/--model_id/--data_shape/"
+                        "--batch_size come from its sidecar)")
+    p.add_argument("--caption_from_export", default="",
+                   help="Path to a tennis_torch.export --kind captioner "
+                        "artifact: mount POST /caption from the saved beam "
+                        "program (--caption_batch_size/--src_max_len come "
+                        "from its sidecar)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="Device the models run on")
+                   help="Device the models run on (an artifact runs on the "
+                        "device its sidecar names)")
     args = p.parse_args(argv)
     if min(args.batch_size, args.request_timeout_s, args.src_max_len,
            args.caption_batch_size) < 1 or args.max_wait_ms < 0:

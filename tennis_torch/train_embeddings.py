@@ -16,12 +16,13 @@ there.
 The flags are the JAX trainer's, with the same names and defaults, plus
 ``--device`` (``cuda`` by default; asking for it without a GPU raises).
 AdaGrad is ``optax.adagrad(lr)``'s: the accumulator starts at 0.1, the
-update is ``-lr g / sqrt(acc + 1e-7)``. The pairs are the JAX package's
-numpy generator's (``_center_context_pairs_np``: a window drawn per center
-from ``default_rng(seed + epoch)``); the JAX driver takes them from its
-native library when that is built, whose pairs differ in order and in
-their reduced windows. The losses are summed on the device and read at
-each log line, not after every step.
+update is ``-lr g / sqrt(acc + 1e-7)``. The pairs come from the port's
+copy of the native batch ops (``tennis_torch.native.center_context_pairs``)
+when that is built, as the JAX driver takes them from its own, else from
+its numpy fallback (a window drawn per center from ``default_rng(seed +
+epoch)``), whose pairs differ in order and in their reduced windows. The
+losses are summed on the device and read at each log line, not after every
+step.
 
 Run: ``python -m tennis_torch.train_embeddings --root data`` (``--device
 cpu`` off the GPU).
@@ -127,24 +128,6 @@ def k_closest_tokens(vocab, vecs, word: str, k: int = 10):
     return [vocab.idx_to_token[i] for i in order[1: k + 1]]
 
 
-def center_context_pairs(sentences, window: int, seed: int):
-    """(centers, contexts) int64 of every sentence: for each position a
-    window r drawn uniform in [1, window] from ``default_rng(seed)``, then
-    every neighbour within r (the JAX package's numpy generator)."""
-    rng = np.random.default_rng(seed)
-    centers, contexts = [], []
-    for s in sentences:
-        s = list(s)
-        for t in range(len(s)):
-            r = int(rng.integers(1, window + 1))
-            for d in range(-r, r + 1):
-                if d == 0 or not (0 <= t + d < len(s)):
-                    continue
-                centers.append(s[t])
-                contexts.append(s[t + d])
-    return np.asarray(centers, np.int64), np.asarray(contexts, np.int64)
-
-
 def adagrad_init(params: dict) -> dict:
     return {k: torch.full_like(v, ADAGRAD_INIT) for k, v in params.items()}
 
@@ -183,12 +166,15 @@ def train(args: argparse.Namespace):
     from tennis_torch.inference import resolve_device
     from tennis_torch.models.skipgram import SkipGram
 
+    from tennis_torch.native import HAVE_NATIVE, center_context_pairs
+
     device = resolve_device(args.device)
     sentences = load_corpus(args.root, args.add_extra)
     counter = Counter(t for s in sentences for t in s)
     vocab = EmbeddingVocab(counter)
     coded = [[vocab[t] for t in s if t in vocab] for s in sentences]
-    log.info("# sentences: %d, vocab: %d", len(sentences), len(vocab))
+    log.info("# sentences: %d, vocab: %d, native batch ops: %s",
+             len(sentences), len(vocab), HAVE_NATIVE)
 
     model = SkipGram(
         vocab_size=len(vocab), num_buckets=args.ngram_buckets,

@@ -9,12 +9,16 @@ under ``torch.inference_mode()`` on the model's device and encodes inside
 CUDA kernel on the card. The translator is the only code of the package
 that sets that context. There is no per-shape compile cache and no mesh:
 PyTorch runs eagerly on one card.
+
+``build_decoder`` is the trace surface of ``tennis_torch.export``: the same
+decode for a static batch, with the search as one ``while_loop``
+(``beam_search_loop``).
 """
 from __future__ import annotations
 
 import torch
 
-from tennis_torch.ops.beam_search import beam_search
+from tennis_torch.ops.beam_search import beam_search, beam_search_loop
 from tennis_torch.ops.rnn import gru_decode
 
 
@@ -32,6 +36,27 @@ class BeamSearchTranslator:
     @property
     def device(self) -> torch.device:
         return next(self._model.parameters()).device
+
+    def build_decoder(self, batch_size: int, gru_kernel: bool = False):
+        """``decode(src (B, T, D), src_valid_length (B,) int32) -> (samples
+        (B, K, L) int32, scores (B, K) f32, valid_length (B, K) int32)`` for
+        a static ``batch_size``, the search as one ``while_loop``
+        (:func:`beam_search_loop`): the program ``tennis_torch.export``
+        freezes. It encodes inside ``gru_decode()`` only with
+        ``gru_kernel`` (the counterpart of the JAX ``use_pallas_gru``): the
+        encoder's GRU recurrences then go through the GRU kernel's custom
+        op; otherwise through the plain recurrence."""
+        model = self._model
+
+        def decode(src, src_valid_length):
+            with gru_decode(gru_kernel):
+                encoded = model.encode(src, src_valid_length)
+            states = model.init_decoder_state(encoded, src_valid_length)
+            return beam_search_loop(model.decode_step, states, batch_size,
+                                    self._beam, self._bos, self._eos,
+                                    self._max_length, self._alpha, self._K)
+
+        return decode
 
     @torch.inference_mode()
     def translate_tensors(self, src: torch.Tensor, src_valid_length: torch.Tensor):

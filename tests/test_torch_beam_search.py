@@ -157,3 +157,35 @@ def test_translator_matches_jax():
     for b in range(B):
         n = int(got[2][b, 0])
         assert toks[b] == [str(int(i)) for i in got[0][b, 0, 1:n - 1]]
+
+
+@pytest.mark.parametrize("beam,alpha,K,max_length,batch,eos_boost", [
+    (4, 1.0, 5, 6, 3, 0.0),
+    (3, 1.0, 5, 12, 2, 3.0),  # every beam finishes before max_length
+])
+def test_while_loop_form_equals_the_python_loop(beam, alpha, K, max_length,
+                                                batch, eos_boost):
+    """``beam_search_loop`` (one ``while_loop``, the exported form) gives the
+    Python loop's samples, scores and lengths bit for bit, over a state
+    tree with a tuple, a dict, a 0-dim tensor and a None."""
+    from tennis_torch.ops.beam_search import beam_search_loop
+
+    _, step_t = _decoders(seed=beam + max_length, eos_boost=eos_boost)
+    init = torch.from_numpy(np.random.default_rng(batch).normal(
+        size=(batch, HIDDEN)).astype(np.float32))
+    scale = torch.tensor(0.5)
+
+    def step(tokens, states):
+        (state, extra), rest = states
+        logits, state = step_t(tokens, state)
+        return logits + rest["bias"] * scale, \
+            ((state, extra), {"bias": rest["bias"], "none": None})
+
+    states = ((init, scale), {"bias": torch.zeros(batch, V) + 0.1,
+                              "none": None})
+    want = beam_search(step, states, batch, beam, BOS, EOS, max_length,
+                       alpha, K)
+    got = beam_search_loop(step, states, batch, beam, BOS, EOS, max_length,
+                           alpha, K)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)

@@ -2,8 +2,9 @@
 and cluster) against their plain version at small and ragged shapes, the
 wrapper's refusals and choice of kernel, DenseNet forwards through the
 kernels (DenseNet161's widths through ``dense_layer_convs``), the two GRU
-kernels, and the paths around them (FlowNet-S through cuDNN; ``predict``
-over in-memory frames). Marked ``cuda``; each test skips without a card. On a
+kernels, the paths around them (FlowNet-S through cuDNN; ``predict``
+over in-memory frames) and the ``torch.export`` programs that carry both
+kernels as custom ops. Marked ``cuda``; each test skips without a card. On a
 machine with one, run them without the JAX conftest:
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q``."""
 import pytest
@@ -934,3 +935,76 @@ def test_predict_in_memory_frames_on_the_card_match_the_cpu(dev, tmp_path,
     np.testing.assert_array_equal(runs["cuda"][1], np.arange(0, 20, 2))
     assert (tmp_path / "cuda" / "frames.txt").read_text() == \
         (tmp_path / "cpu" / "frames.txt").read_text()
+
+
+# ------------------------------------------------------------------ export
+
+
+def test_exported_classifier_launches_the_routed_kernels(dev, tmp_path,
+                                                         monkeypatch):
+    """``export_classifier`` on the card at batch 2 (DenseNet121 at 64^2):
+    58 ``tennis_torch.dense_layer`` nodes naming the route's kernels, the
+    loaded program 58 launches split as the route names them, and the live
+    scorer's probabilities within 1e-5."""
+    import numpy as np
+
+    from tennis_torch import export
+    from tennis_torch.bridge import to_flax
+    from tennis_torch.inference import build_frame_model, load_classifier
+    from tennis_torch.utils import checkpoint as ckpt
+
+    monkeypatch.chdir(tmp_path)
+    model = build_frame_model("DenseNet121", 11, 64,
+                              generator=torch.Generator().manual_seed(8))
+    exp = tmp_path / "models" / "vision" / "experiments" / "x1"
+    ckpt.save_state(ckpt.epoch_path(str(exp), 0), to_flax(model))
+    program, meta = export.export_classifier("DenseNet121", "x1", 64, 2,
+                                             root="none")
+    assert meta["platforms"] == ["cuda"]
+    routed = dict.fromkeys(db.ROUTES, 0)
+    side, channels = 16, 64
+    for num_layers in (6, 12, 24, 16):
+        for j in range(num_layers):
+            routed[db.dense_layer_variant(2, side, side, channels + 32 * j)] += 1
+        channels, side = (channels + 32 * num_layers) // 2, side // 2
+    nodes = [n for n in program.graph.nodes
+             if str(n.target).startswith("tennis_torch.dense_layer")]
+    assert len(nodes) == 58
+    assert {v: sum(n.args[-2] == v for n in nodes) for v in routed} == routed
+    export.save_exported(str(tmp_path / "x1.pt2"), program, meta)
+    _, predict, _ = export.load_exported(str(tmp_path / "x1.pt2"))
+    _, live, _ = load_classifier("DenseNet121", "x1", 64, root="none")
+    frames = np.random.default_rng(9).integers(0, 256, (2, 64, 64, 3),
+                                               dtype=np.uint8)
+    want = live(frames)
+    before = dict(db.dense_layer.variant_launches)
+    got = predict(frames)
+    launched = {v: db.dense_layer.variant_launches[v] - before[v]
+                for v in routed}
+    assert launched == routed
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_exported_decoder_with_the_gru_op_launches_the_kernel(dev):
+    """The translator's ``build_decoder(gru_kernel=True)`` exported on the
+    card: three ``tennis_torch.gru_recurrence`` nodes, three GRU-kernel
+    launches a run of the program, and the live translator's samples."""
+    from tennis_torch import export
+    from tennis_torch.ops import gru
+    from tennis_torch.translation import BeamSearchTranslator
+
+    model = _captioner(dev).eval()
+    src, _, src_vl, _ = _caption_batch(dev)
+    src_vl = src_vl.to(torch.int32)
+    translator = BeamSearchTranslator(model, 2, 3, max_length=6)
+    decode = translator.build_decoder(src.shape[0], gru_kernel=True)
+    program = export._export(decode, (src, src_vl), state=model)
+    assert len([n for n in program.graph.nodes if str(n.target).startswith(
+        "tennis_torch.gru_recurrence")]) == 3
+    want = translator.translate_tensors(src, src_vl)
+    launches = gru.gru_recurrence.launches
+    with torch.no_grad():
+        got = program.module()(src, src_vl)
+    assert gru.gru_recurrence.launches == launches + 3
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)

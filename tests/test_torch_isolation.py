@@ -34,7 +34,7 @@ def _port_sources():
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PORT):
         paths += [os.path.join(root, f) for f in files
-                  if f.endswith((".py", ".cu", ".cuh"))]
+                  if f.endswith((".py", ".cu", ".cuh", ".cpp"))]
     return paths
 
 
@@ -114,6 +114,15 @@ def test_cuda_without_gpu_raises(tmp_path, monkeypatch):
         train_gnmt.main(["--feats_model=none"])
     with pytest.raises(RuntimeError, match="no GPU"):
         evaluate_gnmt.main(["--feats_model=none", "--force"])
+    from tennis_torch import export
+
+    with pytest.raises(RuntimeError, match="no GPU"):
+        export.main(["--model_id=none"])  # device defaults to cuda
+    with pytest.raises(RuntimeError, match="no GPU"):
+        export.main(["--kind=captioner", "--model_id=none"])
+    with pytest.raises(RuntimeError, match="no GPU"):
+        export.export_classifier("DenseNet121", "none", 32, 2,
+                                 platforms=["cuda"], device="cpu")
     assert resolve_device("cpu") == torch.device("cpu")
 
 

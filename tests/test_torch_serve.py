@@ -193,7 +193,7 @@ def test_flags_match_jax_serve():
     ported = {"root", "model_id", "backbone", "data_shape", "host", "port",
               "batch_size", "max_wait_ms", "request_timeout_s",
               "caption_model_id", "gnmt_flag", "src_max_len",
-              "caption_batch_size"}
+              "caption_batch_size", "from_export", "caption_from_export"}
     assert set(args) == ported | {"device"}
     jax_flags = jax_serve.FLAGS
     for name in ported:

@@ -1,6 +1,6 @@
 """SkipGram and its trainer against the JAX package on the CPU: fastText
-hashes, subword and alias tables equal; the numpy (center, context) pairs
-equal; the pair loss, its gradients and one AdaGrad step from the same
+hashes, subword and alias tables equal; the (center, context) pairs the
+trainers take (the native library's) and the numpy fallback's equal; the pair loss, its gradients and one AdaGrad step from the same
 parameters and the same negatives (drawn by the JAX sampler and handed to
 both) within 1e-6; ``token_vectors`` equal; the trainer's flags those of
 the JAX trainer; and ``python -m tennis_torch.train_embeddings`` on the
@@ -21,8 +21,8 @@ import torch
 
 from fixtures import build_fixture
 from tennis_tpu.models import skipgram as jsg
-from tennis_tpu.native import _center_context_pairs_np
-from tennis_torch import train_embeddings
+from tennis_tpu import native as jax_native
+from tennis_torch import native, train_embeddings
 from tennis_torch.models import skipgram as tsg
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -64,12 +64,20 @@ def test_alias_sampler_follows_the_unigram_distribution():
 
 
 def test_center_context_pairs_equal():
+    """The pairs both trainers take (each package's native library, built
+    here) are equal, and so are the numpy fallbacks' (ROADMAP departure 6,
+    closed)."""
+    assert native.HAVE_NATIVE and jax_native.HAVE_NATIVE
     rng = np.random.default_rng(1)
     sents = [list(rng.integers(0, 40, rng.integers(1, 15))) for _ in range(30)]
     for window, seed in ((3, 1), (1, 7), (5, 2)):
+        for got, want in zip(native.center_context_pairs(sents, window, seed),
+                             jax_native.center_context_pairs(sents, window,
+                                                             seed)):
+            np.testing.assert_array_equal(got, want)
         for got, want in zip(
-                train_embeddings.center_context_pairs(sents, window, seed),
-                _center_context_pairs_np(sents, window, seed)):
+                native._center_context_pairs_np(sents, window, seed),
+                jax_native._center_context_pairs_np(sents, window, seed)):
             np.testing.assert_array_equal(got, want)
 
 
