@@ -52,7 +52,7 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    ``make_train_step``: ``apply_augment``, the bf16 train-mode forward and
    backward (plain torch ops and cuDNN, as the JAX package trains through
    its flax module), momentum SGD. With ``remat`` none and block: 3
-   warm-up and 20 timed steps each (step ms, samples/s, device busy and
+   warm-up and 5 timed steps each (step ms, samples/s, device busy and
    idle share over 2 profiled steps, the largest kernels, peak memory,
    model FLOPs and ``mfu`` against the dense bf16 peak). Gates: every loss
    finite; 30 steps on one repeated batch lower the loss; the first bf16
@@ -147,7 +147,7 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    dropout 0.2, Adam 1e-3 and clip 5 over an in-memory train split of 512
    points (64-512 frames of seeded 4096-d features, captions of 8-50 ids),
    through ``make_seq2seq_train_step`` at ``--batch_size 128``: 3 warm-up
-   and 20 timed steps over the bucketed batches (step ms, target tokens/s,
+   and 5 timed steps over the bucketed batches (step ms, target tokens/s,
    source frames/s, device busy and idle share and launches over 2 profiled
    steps, the largest kernels, peak memory). Gates: every loss finite; 30
    steps on one batch lower the loss; the first step's loss (1e-4 relative)
@@ -174,7 +174,7 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    built by ``train.build_model`` from the driver's flags with seeded
    random weights in flax naming: ``[cnnrnn_train]``, the 0042 CNN-RNN's
    train step at its published configuration ((64, 30, 4096) features on
-   the device, bi-GRU 128 in bf16, SGD): 3 warm-up and 20 timed steps
+   the device, bi-GRU 128 in bf16, SGD): 3 warm-up and 5 timed steps
    (windows/s, device busy and idle share and launches over 2 profiled
    steps, the largest kernels, peak memory), then the LSTM cell (10 timed);
    gates: finite losses, 30 steps on one batch lower the loss, the first
@@ -188,7 +188,7 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    PRF1 the trainer's final test's. ``[two_stream]``: the 0010 net
    (``--flow twos``, two DenseNet121 streams) at 512^2, batch 64,
    ``--remat block``, over 256 seeded 6-channel frames on the device: 3
-   warm-up and 10 timed steps (samples/s, ``mfu`` of both streams, idle
+   warm-up and 5 timed steps (samples/s, ``mfu`` of both streams, idle
    share, launches a step, peak memory); ``--flow only`` and ``sixc`` 3
    steps each; after each an evaluation forward at batch 64: 116 (twos) or
    58 dense launches split as the route names them, logits within 5e-2 of
@@ -205,7 +205,7 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    that none was launched. ``[resnet_train]``: the drivers' default
    ``FrameModel(resnet18_v2, 11)`` at 512^2, batch 64, over the train
    phase's frames through the driver's step (device augment, bf16, SGD): 3
-   warm-up and 20 timed steps (samples/s, idle share, launches, the largest
+   warm-up and 5 timed steps (samples/s, idle share, launches, the largest
    kernels, peak memory, model FLOPs counted by ``FlopCounterMode`` and
    ``mfu``), then ``resnet50_v2`` for 3 steps; gates: finite losses, 30
    steps on one batch lower the loss, the first bf16 step against f32 and
@@ -217,7 +217,7 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    (batch-8 logits against the same model in f32 on the CPU); two-stream,
    ``only`` and ``sixc`` 3 steps each; the CNN-RNN over the dumped
    features 3 steps. ``[r21d_train]``: 0031 at 8 x 224^2, batch 64 with
-   ``--remat block`` and 32 without, 3 warm-up and 10 timed steps each
+   ``--remat block`` and 32 without, 3 warm-up and 5 timed steps each
    (clips/s, the same fields), window 32 at batch 16 for 3; gates: finite
    losses, 30 steps on one batch of 8 lower the loss, ``init_bn``'s
    statistics bit for bit unchanged and every other BN's moved, the first
@@ -244,7 +244,7 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    ``--emb_file`` of ``[pixcap_driver]``. ``[pixcap_train]``: the 0102
    widths with an f32 DenseNet121 ``src_embed`` at 512^2, ``--remat
    block``, over seeded in-memory uint8 points (batch 2 x 32 frames,
-   captions of 8-50 ids): 3 warm-up and 10 timed steps, frozen and not
+   captions of 8-50 ids): 3 warm-up and 5 timed steps, frozen and not
    (step ms, frames/s, target tokens/s, device busy and idle share, the
    largest kernels, peak memory); gates: finite losses, 30 steps on one
    point of 8 frames lower the loss, the first step at that size against
@@ -258,6 +258,20 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    3 GRU launches a decode batch, the first decode batch's encoder output
    within 1e-4 of the plain-version forward, the epoch files read back bit for
    bit; decode ms a batch and a step, a decode's idle share;
+7e. ``[ddp]`` (before ``[predict]``): data parallelism in a process group
+   of one rank, NCCL on cuda:0, through a TCP store on 127.0.0.1 at a free
+   port: 2 DenseNet121-512 train steps at batch 8 through the
+   data-parallel step (in the group: BN sums and gradients all-reduced) against
+   the same steps without a group (the first loss, the parameters against
+   a second plain run's spread: ``DDP_*``), 5 more of each timed, the NCCL
+   kernels' device ms and the bytes all-reduced a step; one
+   ``sharded_eval_iter`` forward of 8
+   frames (58 dense launches, the probabilities of ``eval_iter``
+   exactly); a 0102-shaped decode (batch 4 over 128 frames, the sentences
+   gathered through the group) at ``--num_hidden`` 1024, where no kernel
+   takes H (no GRU launch, 3 layers counted in ``plain_routed``, the
+   samples of the plain decode exactly), and at 256 (3 GRU launches);
+   then the group is destroyed;
 8. ``{"kernels": [...]}``, then the card line, then ``{"ok": true, ...}``.
 
 Any failure exits nonzero before the last line. Without a GPU, or without
@@ -333,7 +347,7 @@ CAP_TRAIN_ARGV = CAPTION_ARGV + [
     "--batch_size=128", "--test_batch_size=32", "--dropout=0.2",
     "--optimizer=adam", "--lr=0.001", "--clip=5", "--emb_file=",
     "--device=cuda"]
-CAP_WARMUP, CAP_TIMED, CAP_PROFILED = 3, 20, 2
+CAP_WARMUP, CAP_TIMED, CAP_PROFILED = 3, 5, 2
 CAP_CPU_ROWS = 16
 # the driver's EOS logit bias: far enough below every word's that its 12
 # Adam steps at 1e-3 cannot lift EOS into a beam, so every decode runs the
@@ -364,7 +378,7 @@ POOL_BATCH, POOL_WINDOW = 2, 8
 # training: the driver's --batch_size and default optimizer; the f32
 # comparison at a smaller batch, to hold two models' activations at once
 TRAIN_BATCH = 64
-TRAIN_WARMUP, TRAIN_TIMED, TRAIN_PROFILED = 3, 20, 2
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_PROFILED = 3, 5, 2
 OVERFIT_STEPS = 30
 F32_BATCH = 16
 # bf16 against f32, first step (PERF.md, Findings): relative loss, worst
@@ -395,7 +409,7 @@ CNNRNN_LOSS_TOL, CNNRNN_GRAD_TOL = 1e-5, 1e-4
 CLIP_BATCH, CLIP_TIMED = 2, 5
 # the two-stream net (0010, --flow twos; the JAX package's figure at
 # --remat block) over seeded 6-channel frames; --flow only and sixc briefly
-TWO_STREAM_FRAMES, TWO_STREAM_TIMED, OTHER_FLOW_STEPS = 256, 10, 3
+TWO_STREAM_FRAMES, TWO_STREAM_TIMED, OTHER_FLOW_STEPS = 256, 5, 3
 # ResNet-v2: the drivers' default backbone (resnet18_v2) at 512^2 over the
 # train phase's frames and batch, resnet50_v2 briefly. R(2+1)D: the 0031
 # row (--backbone rdnet --window 8 --data_shape 224) over R21D_POOL seeded
@@ -410,7 +424,7 @@ RESNET50_STEPS = 3
 R21D_SHAPE, R21D_WINDOW, R21D_POOL = 224, 8, 64
 R21D_ARGV = ["--backbone=rdnet", f"--window={R21D_WINDOW}",
              f"--data_shape={R21D_SHAPE}"]
-R21D_BATCH_REMAT, R21D_BATCH_NONE, R21D_W32_BATCH, R21D_TIMED = 64, 32, 16, 10
+R21D_BATCH_REMAT, R21D_BATCH_NONE, R21D_W32_BATCH, R21D_TIMED = 64, 32, 16, 5
 R21D_SMALL, R21D_OVERFIT_BATCH = 4, 8
 R21D_REMAT_LOSS_TOL, R21D_REMAT_GRAD_TOL = 1e-5, 1e-3
 # the first step's f32 update against the same step in f64 (global relative
@@ -447,7 +461,7 @@ PIXCAP_ARGV = ["--num_hidden=256", "--num_layers=2", "--num_bi_layers=1",
                f"--data_shape={DATA_SHAPE}", "--remat=block",
                "--optimizer=adam", "--lr=0.001", "--clip=5", "--device=cuda"]
 PIXCAP_BATCH, PIXCAP_FRAMES, PIXCAP_SMALL = 2, 32, 8
-PIXCAP_WARMUP, PIXCAP_TIMED = 3, 10
+PIXCAP_WARMUP, PIXCAP_TIMED = 3, 5
 PIXCAP_POOL = 64
 PIXCAP_POINTS = {"train": 8, "val": 4, "test": 4}
 PIXCAP_F64_LOSS_TOL, PIXCAP_F64_STATS_TOL = 1e-4, 1e-3
@@ -473,6 +487,22 @@ F32_STACK_BATCHES = (2, F32_STACK_BATCH)
 SKIPGRAM_CAPTIONS, SKIPGRAM_EXTRA = 300, 10_000
 SKIPGRAM_LEN, SKIPGRAM_TOPICS = (6, 20), 25
 SKIPGRAM_PROBE = 8192  # pairs whose mean loss is taken before and after
+
+# [ddp]: data parallelism through a process group of one rank (NCCL on
+# cuda:0; the card machine has one GPU, so scaling over GPUs is not
+# measured). DDP_STEPS DenseNet121-512 train steps at DDP_BATCH through the
+# data-parallel step against the same steps without a group, and a second
+# run without a group beside them (cuDNN's and max-pool's backward sum in a
+# varying order, and the bf16 step magnifies it): the first loss within
+# DDP_LOSS_TOL relative, and the parameters' distance from the plain run
+# (global relative L2 of their difference over the plain run's update)
+# within DDP_UPDATE_FACTOR times the two plain runs' distance plus
+# DDP_UPDATE_FLOOR; then DDP_TIMED more steps of each, timed (the plain
+# ones before the group exists). One sharded evaluation forward of DDP_BATCH frames; a
+# 0102-shaped decode (batch 4 over 128 frames) at each of DDP_HIDDEN
+DDP_BATCH, DDP_STEPS, DDP_TIMED = 8, 2, 5
+DDP_LOSS_TOL, DDP_UPDATE_FACTOR, DDP_UPDATE_FLOOR = 1e-3, 2.0, 1e-2
+DDP_HIDDEN = (1024, 256)
 
 # (name, T, batch, H, valid lengths): the 0102 serving shape, the lengths of
 # the measured /caption batch (all end before T), --num_hidden 512, the
@@ -2437,7 +2467,7 @@ def sgd_state(model, args, steps_per_epoch):
 def cnnrnn_train_phase(dev):
     """The 0042 CNN-RNN's train step at its published configuration:
     (64, 30, 4096) features on the device, bi-GRU 128 in bf16, SGD; 3
-    warm-up and 20 timed steps, then the LSTM cell (10 timed). Gates:
+    warm-up and 5 timed steps, then the LSTM cell (10 timed). Gates:
     finite losses, a repeated batch learnt, the first step on the card
     against the CPU in f32 (loss, gradients), and no dense-layer or GRU
     kernel launched in a step."""
@@ -3799,7 +3829,7 @@ def no_kernel_launched(by_name=None):
 def resnet_train_phase(dev, frames):
     """The drivers' default model, ``FrameModel(resnet18_v2, 11)``, at
     512^2 and batch 64 over the 256 seeded frames, through the driver's
-    train step (device augment, bf16, SGD): 3 warm-up and 20 timed steps,
+    train step (device augment, bf16, SGD): 3 warm-up and 5 timed steps,
     2 profiled; then ``resnet50_v2`` for RESNET50_STEPS steps. Gates: finite
     losses, 30 steps on one batch lower the loss, the first bf16 step
     against f32 at batch 16, no kernel launched."""
@@ -4864,6 +4894,197 @@ def pixcap_driver_phase(dev, vocab, root):
     return dense_counts
 
 
+def ddp_phase(dev):
+    """Data parallelism on the card at world size 1 (``[ddp]``): the
+    data-parallel train step, a sharded evaluation forward and a sharded
+    decode past the GRU kernels' H, through a one-rank NCCL group.
+    Returns the dense-layer and GRU kernel launches of its main-path
+    calls."""
+    import argparse
+
+    import torch.distributed as dist
+
+    from tennis_torch import train as driver
+    from tennis_torch.bridge import load_flax, to_flax
+    from tennis_torch.data.loader import DataLoader, eval_iter, \
+        sharded_eval_iter
+    from tennis_torch.inference import build_frame_model, make_eval_step
+    from tennis_torch.ops import gru
+    from tennis_torch.parallel import distributed as D
+    from tennis_torch.parallel.train_step import create_train_state, \
+        make_train_step, sgd_with_schedule
+    from tennis_torch.train_gnmt import build_model, parse_args
+    from tennis_torch.translation import BeamSearchTranslator
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 16)
+    tree = random_flax_tree(to_flax(build_frame_model(
+        "DenseNet121", 11, DATA_SHAPE)), rng)
+    frames = rng.integers(0, 256, (DDP_BATCH, DATA_SHAPE, DATA_SHAPE, 3),
+                          dtype=np.uint8)
+    labels_np = rng.integers(0, 11, DDP_BATCH)
+    images = torch.from_numpy(frames).to(dev)
+    labels = torch.from_numpy(labels_np).to(dev)
+    preprocess = driver.make_preprocess(argparse.Namespace(flow=""),
+                                        torch.bfloat16)
+
+    def classifier():
+        return load_flax(build_frame_model("DenseNet121", 11, DATA_SHAPE),
+                         tree).to(dev)
+
+    def train():
+        model = classifier()
+        tx, _ = sgd_with_schedule(0.001, 0.9, 1e-4, (10, 20), 0.75, 1)
+        state = create_train_state(model, tx)
+        step = make_train_step(state, preprocess, rng_seed=SEED + 123)
+        losses = [step(images, labels)[0].item() for _ in range(DDP_STEPS)]
+        return step, losses, [p.detach().clone() for p in model.parameters()]
+
+    def distance(a, b, init):
+        num = sum(((x.double() - y.double()) ** 2).sum() for x, y in zip(a, b))
+        den = sum(((y.double() - i.double()) ** 2).sum()
+                  for y, i in zip(b, init))
+        return (num / den).sqrt().item()
+
+    def step_ms(step):
+        times = []
+        for _ in range(DDP_TIMED):
+            t0 = time.perf_counter()
+            step(images, labels)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    init = [p.detach().clone() for p in classifier().parameters()]
+    plain_step, plain_losses, plain = train()
+    _, again_losses, again = train()
+    spread = distance(again, plain, init)
+    plain_ms = step_ms(plain_step)
+    del plain_step
+    gru.gru_recurrence.plain_routed = 0
+    D.initialize_multihost(f"127.0.0.1:{D.free_port()}", 1, 0, "cuda", 0)
+    try:
+        world = D.current_world("cuda")
+        calls = {"all_reduce": 0, "bytes": 0}
+        real = dist.all_reduce
+
+        def counted(t, *a, **k):
+            calls["all_reduce"] += 1
+            calls["bytes"] += t.numel() * t.element_size()
+            return real(t, *a, **k)
+
+        dist.all_reduce = counted
+        try:
+            step, dp_losses, dp = train()
+        finally:
+            dist.all_reduce = real
+        dp_gap = distance(dp, plain, init)
+        dp_ms = step_ms(step)
+        by_name = device_profile(lambda: step(images, labels))
+        nccl = {k: v for k, v in by_name.items() if "nccl" in k.lower()}
+        busy_ms = sum(v[0] for k, v in by_name.items()
+                      if not k.startswith(("Memcpy", "Memset")))
+        del step
+        train_ok = (all(np.isfinite(dp_losses))
+                    and abs(dp_losses[0] - plain_losses[0])
+                    <= DDP_LOSS_TOL * abs(plain_losses[0])
+                    and dp_gap <= DDP_UPDATE_FACTOR * spread
+                    + DDP_UPDATE_FLOOR)
+        log("ddp", world=[world.rank, world.size, str(world.device)],
+            backend=dist.get_backend(), batch=DDP_BATCH, steps=DDP_STEPS,
+            plain_losses=plain_losses, again_losses=again_losses,
+            dp_losses=dp_losses, plain_spread_rel_l2=spread,
+            dp_gap_rel_l2=dp_gap, loss_tol=DDP_LOSS_TOL,
+            update_bound=DDP_UPDATE_FACTOR * spread + DDP_UPDATE_FLOOR,
+            all_reduce_calls_per_step=calls["all_reduce"] / DDP_STEPS,
+            bytes_reduced_per_step=calls["bytes"] / DDP_STEPS,
+            nccl_device_ms_per_step=sum(v[0] for v in nccl.values()),
+            nccl_launches_per_step=sum(v[1] for v in nccl.values()),
+            nccl_kernels=sorted(k[:60] for k in nccl),
+            device_busy_ms_per_step=busy_ms,
+            device_launches_per_step=sum(v[1] for v in by_name.values()),
+            plain_step_ms=plain_ms, dp_step_ms=dp_ms,
+            dp_step_cost=dp_ms / plain_ms - 1, ok=train_ok)
+
+        # one sharded evaluation forward against eval_iter's
+        class Split:
+            def __len__(self):
+                return DDP_BATCH
+
+            def __getitem__(self, i):
+                return frames[i], labels_np[i], np.int64(i)
+
+        scorer = make_eval_step(classifier(), dev)
+
+        def probs(x):
+            return torch.softmax(scorer(x), dim=-1)
+
+        reset_kernel_counts()
+        sharded = list(sharded_eval_iter(
+            DataLoader(Split(), DDP_BATCH, num_workers=1,
+                       num_shards=world.size, shard_id=world.rank),
+            DDP_BATCH, DDP_BATCH, probs, dev))
+        dense, _ = kernel_counts()
+        plain_eval = list(eval_iter(DataLoader(Split(), DDP_BATCH,
+                                               num_workers=1), probs, dev))
+        (got, got_labels, got_idx), = sharded
+        (want, want_labels, want_idx), = plain_eval
+        eval_ok = (sum(dense.values()) == 58 and np.array_equal(got, want)
+                   and np.array_equal(got_idx, want_idx)
+                   and np.array_equal(got_labels, want_labels))
+        log("ddp_eval", frames=DDP_BATCH, launches_by_variant=dense,
+            max_abs_vs_eval_iter=float(np.abs(got - want).max()), ok=eval_ok)
+        launches = dict(dense)
+
+        # a 0102-shaped decode past the GRU kernels' H, and at 256
+        vocab = caption_vocab()
+        src = rng.standard_normal((CAPTION_BATCH, SRC_MAX_LEN, FEAT_DIM)) \
+            .astype(np.float32)
+        vl = np.array([128, 100, 37, 1], np.int32)
+        decode_ok, gru_launches = True, dict.fromkeys(gru.VARIANTS, 0)
+        for hidden in DDP_HIDDEN:
+            args = parse_args(CAPTION_ARGV + [f"--num_hidden={hidden}"])
+            model = build_model(args, len(vocab), FEAT_DIM)
+            load_flax(model, random_flax_tree(to_flax(model), rng))
+            model.to(dev).eval()
+            translator = BeamSearchTranslator(
+                model, vocab[vocab.bos_token], vocab[vocab.eos_token],
+                args.beam_size, args.lp_alpha, args.lp_k,
+                args.tgt_max_len + 20)
+            reset_kernel_counts()
+            gru.gru_recurrence.plain_routed = 0
+            t0 = time.perf_counter()
+            samples, scores, lengths = translator.translate(src, vl)
+            decode_ms = (time.perf_counter() - t0) * 1e3
+            _, n_gru = kernel_counts()
+            routed = gru.gru_recurrence.plain_routed
+            for v in gru.VARIANTS:
+                gru_launches[v] += gru.gru_recurrence.variant_launches[v]
+            with torch.inference_mode():
+                want = translator.build_decoder(CAPTION_BATCH)(
+                    torch.from_numpy(src).to(dev),
+                    torch.from_numpy(vl).to(dev))
+            want = [t.cpu().numpy() for t in want]
+            same = np.array_equal(samples, want[0])
+            top_same = np.array_equal(samples[:, 0], want[0][:, 0])
+            ok = (n_gru == 0 and routed == 3 and same) if hidden > 512 \
+                else (n_gru == 3 and routed == 0)
+            decode_ok = decode_ok and ok
+            log("ddp_decode", num_hidden=hidden, gru_launches=n_gru,
+                plain_routed=routed, samples_equal_plain_decode=same,
+                top_beams_equal_plain_decode=top_same,
+                max_abs_score_vs_plain=float(np.abs(scores - want[1]).max()),
+                decode_ms=decode_ms, ok=ok)
+            del model, translator
+    finally:
+        D.shutdown()
+    log("ddp_phase", wall_s=time.perf_counter() - t_phase,
+        group_destroyed=not D.grouped())
+    if not (train_ok and eval_ok and decode_ok) or D.grouped():
+        raise SystemExit("the data-parallel phase failed its gates")
+    return launches, gru_launches
+
+
 def dense_f32_entry(worst_abs, stacks, launches):
     """The kernels-line entry of the f32 dense-layer kernel over the 58
     layers of one DenseNet121-512 forward at F32_STACK_BATCH."""
@@ -4996,6 +5217,20 @@ def gru_entry(name, variant, rows, launches, max_abs):
     }
 
 
+# wall seconds of each phase of this run, by its function's name
+PHASE_SECONDS: dict = {}
+T_START = time.perf_counter()
+
+
+def timed(phase, *args):
+    """``phase(*args)``, its wall seconds kept in PHASE_SECONDS."""
+    t0 = time.perf_counter()
+    try:
+        return phase(*args)
+    finally:
+        PHASE_SECONDS[phase.__name__] = time.perf_counter() - t0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "tennis_torch")):
         print("chip_smoke: tennis_torch/ is not beside this script",
@@ -5013,57 +5248,63 @@ def main() -> int:
     log("card", nvidia_smi=card, device=torch.cuda.get_device_name(0),
         torch=torch.__version__, cuda=torch.version.cuda)
 
-    build_phase()
-    max_abs = kernel_phase()
-    f32_abs, f32_stacks = kernel_f32_phase(torch.device("cuda"))
-    agree = route_phase()
-    stack = stack_phase()
-    stack64_phase()
-    launches = main_path_phase(torch.device("cuda"))
-    model, frames = extraction_inputs(torch.device("cuda"))
+    timed(build_phase)
+    max_abs = timed(kernel_phase)
+    f32_abs, f32_stacks = timed(kernel_f32_phase, torch.device("cuda"))
+    agree = timed(route_phase)
+    stack = timed(stack_phase)
+    timed(stack64_phase)
+    launches = timed(main_path_phase, torch.device("cuda"))
+    model, frames = timed(extraction_inputs, torch.device("cuda"))
     for phase in (extract_phase, evaluate_phase):
-        counts = phase(torch.device("cuda"), model, frames)
+        counts = timed(phase, torch.device("cuda"), model, frames)
         launches = {v: launches[v] + counts[v] for v in launches}
     del model
-    gru_abs, gru_rows = gru_phase(torch.device("cuda"))
-    gru_launches = caption_phase(torch.device("cuda"))
-    vocab, splits, tree = caption_train_inputs()
-    caption_train_phase(torch.device("cuda"), vocab, splits, tree)
-    counts = caption_driver_phase(torch.device("cuda"), vocab, splits, tree)
+    gru_abs, gru_rows = timed(gru_phase, torch.device("cuda"))
+    gru_launches = timed(caption_phase, torch.device("cuda"))
+    vocab, splits, tree = timed(caption_train_inputs)
+    timed(caption_train_phase, torch.device("cuda"), vocab, splits, tree)
+    counts = timed(caption_driver_phase, torch.device("cuda"), vocab, splits,
+                   tree)
     gru_launches = {v: gru_launches[v] + counts[v] for v in gru_launches}
     del vocab, splits, tree
-    densenet161_phase(torch.device("cuda"))
+    timed(densenet161_phase, torch.device("cuda"))
     # last: the train step's profile holds ~10,000 launches a step, and a
     # later profiler session once recorded no kernel six times in a row
-    train_phase(torch.device("cuda"), frames)
-    counts = train_driver_phase(torch.device("cuda"), frames)
+    timed(train_phase, torch.device("cuda"), frames)
+    counts = timed(train_driver_phase, torch.device("cuda"), frames)
     launches = {v: launches[v] + counts[v] for v in launches}
-    cnnrnn_train_phase(torch.device("cuda"))
-    cnnrnn_driver_phase(torch.device("cuda"))
-    for counts in (two_stream_phase(torch.device("cuda")),
-                   cnnrnn_clips_phase(torch.device("cuda"), frames)):
+    timed(cnnrnn_train_phase, torch.device("cuda"))
+    timed(cnnrnn_driver_phase, torch.device("cuda"))
+    for counts in (timed(two_stream_phase, torch.device("cuda")),
+                   timed(cnnrnn_clips_phase, torch.device("cuda"), frames)):
         launches = {v: launches[v] + counts[v] for v in launches}
-    resnet_train_phase(torch.device("cuda"), frames)
-    resnet_driver_phase(torch.device("cuda"), frames)
+    timed(resnet_train_phase, torch.device("cuda"), frames)
+    timed(resnet_driver_phase, torch.device("cuda"), frames)
     del frames
-    r21d_train_phase(torch.device("cuda"))
-    r21d_driver_phase(torch.device("cuda"))
+    timed(r21d_train_phase, torch.device("cuda"))
+    timed(r21d_driver_phase, torch.device("cuda"))
     with tempfile.TemporaryDirectory() as root:
-        skipgram_phase(root)
-        pixcap_train_phase(torch.device("cuda"), caption_vocab())
-        f32_counts = pixcap_driver_phase(torch.device("cuda"), caption_vocab(),
-                                         root)
+        timed(skipgram_phase, root)
+        timed(pixcap_train_phase, torch.device("cuda"), caption_vocab())
+        f32_counts = timed(pixcap_driver_phase, torch.device("cuda"),
+                           caption_vocab(), root)
+    counts, ddp_gru = timed(ddp_phase, torch.device("cuda"))
+    launches = {v: launches[v] + counts[v] for v in launches}
+    gru_launches = {v: gru_launches[v] + ddp_gru[v] for v in gru_launches}
     # last: their profiles gate nothing, so a profiler session that records
     # nothing after them (as once after [train_driver]) fails no phase
-    counts = predict_phase(torch.device("cuda"))
+    counts = timed(predict_phase, torch.device("cuda"))
     launches = {v: launches[v] + counts[v] for v in launches}
-    flownet_phase(torch.device("cuda"))
+    timed(flownet_phase, torch.device("cuda"))
     # the exported programs, through the same kernels as the live paths
-    counts = export_phase(torch.device("cuda"))
+    counts = timed(export_phase, torch.device("cuda"))
     launches = {v: launches[v] + counts[v] for v in launches}
-    counts = export_caption_phase(torch.device("cuda"))
+    counts = timed(export_caption_phase, torch.device("cuda"))
     gru_launches = {v: gru_launches[v] + counts[v] for v in gru_launches}
-    native_phase()
+    timed(native_phase)
+    log("phase_seconds", **PHASE_SECONDS,
+        total=time.perf_counter() - T_START)
     log("trace_fallbacks", count=len(TRACE_FALLBACKS), traces=TRACE_FALLBACKS)
     log("route_summary", routed_is_fastest_by_batch={
         b: {"fastest": a, "shapes": n} for b, (a, n) in agree.items()})

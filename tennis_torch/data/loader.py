@@ -269,6 +269,51 @@ def padded_batch(arrays: Sequence[np.ndarray], pad_value=0, axis: int = 0):
     return np.stack(out), lengths
 
 
+def global_keep_indices(stripe_off: int, n: int, host_batch: int, procs: int,
+                        n_total: int) -> np.ndarray:
+    """Row indices to keep from a rank-major gathered eval batch: ``procs``
+    stripes of ``host_batch`` rows, the first ``n`` of each loader rows (the
+    rest ``pad_batch`` padding). Shard ``p``'s stripe element ``j`` is one of
+    ``DataLoader._indices``'s wrap-padded duplicates iff ``p + j * procs >=
+    n_total``. ``stripe_off`` counts the loader rows taken from each stripe
+    so far. The JAX package's function, as it is."""
+    pos = stripe_off + np.arange(n)
+    return np.concatenate([
+        (p * host_batch + np.arange(n))[p + pos * procs < n_total]
+        for p in range(procs)
+    ])
+
+
+def sharded_eval_iter(loader, host_batch: int, n_total: int, step,
+                      device=None):
+    """Drive an eval ``step`` over a loader striped over the world (the
+    counterpart of the JAX ``sharded_eval_iter``): pad each batch to the
+    static per-rank ``host_batch`` (``pad_batch``), prefetch it to
+    ``device``, run ``step(inputs)``, gather ``(out, labels, idxs)`` from
+    every rank (``fetch_global``, a collective; the equal stripes keep the
+    ranks in lockstep) and drop the pad rows and the loader's wrap-padded
+    duplicates, so the yielded rows, concatenated, are exactly a
+    single-device pass over the dataset. Yields host numpy ``(out, labels,
+    idxs)`` blocks, ``out`` in f32."""
+    from tennis_torch.parallel.distributed import fetch_global
+    from tennis_torch.parallel.mesh import pad_batch
+
+    def padded():
+        for batch in iter(loader):
+            (inputs, labels, idxs), n = pad_batch(tuple(batch), host_batch)
+            yield inputs, labels, idxs, n
+
+    stripe_off = 0
+    for inputs, labels, idxs, n in prefetch_to_device(padded(), device):
+        out = step(inputs).float()
+        out, labels, idxs = fetch_global((out, np.asarray(labels),
+                                          np.asarray(idxs)))
+        keep = global_keep_indices(stripe_off, n, host_batch,
+                                   out.shape[0] // host_batch, n_total)
+        stripe_off += n
+        yield out[keep], labels[keep], idxs[keep]
+
+
 def eval_iter(loader, step, device=None):
     """Drive an eval ``step`` over ``loader`` on one device: prefetch each
     batch to ``device``, run ``step(inputs)`` and yield ``(out, labels,

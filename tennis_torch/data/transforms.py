@@ -233,7 +233,15 @@ def apply_augment(batch_u8: torch.Tensor, draws: AugmentDraws,
 
 
 def device_augment(batch_u8: torch.Tensor, generator: torch.Generator,
-                   dtype=torch.bfloat16) -> torch.Tensor:
-    """:func:`apply_augment` of fresh :func:`augment_draws`."""
-    return apply_augment(batch_u8, augment_draws(batch_u8.shape[0], generator),
-                         dtype)
+                   dtype=torch.bfloat16, rows=None) -> torch.Tensor:
+    """:func:`apply_augment` of fresh :func:`augment_draws`. ``rows =
+    (global batch, positions)`` draws for the global batch and takes the
+    draws at ``positions``: a data-parallel rank's rows get the draws their
+    samples get in a single-process step."""
+    if rows is None:
+        draws = augment_draws(batch_u8.shape[0], generator)
+    else:
+        total, pos = rows
+        draws = AugmentDraws(*(d[pos] for d in augment_draws(total,
+                                                            generator)))
+    return apply_augment(batch_u8, draws, dtype)

@@ -19,6 +19,13 @@ framewise classifier over a DenseNet or ResNet-v2. ``--vis`` renders the
 scored frames with their probabilities into ``<experiment>/results.mp4``
 (``utils.visualisation.visualise_events``).
 
+It runs on every local GPU, as the JAX evaluator runs over every local
+device (one rank with ``--device cpu``), and ``--multihost --coordinator
+host:port --num_hosts H --host_id h`` joins H hosts: each rank scores its
+stripe of every global batch, the rows of every rank are gathered
+(``sharded_eval_iter``), and only global rank 0 writes ``--metrics_out``
+and ``--vis``; under ``--save_feats`` each rank writes its own rows.
+
 Run: ``python -m tennis_torch.evaluate --model_id 0006 --backbone
 DenseNet121`` (``--device cpu`` off the GPU; add the training flags of the
 experiment, e.g. ``--feats_model 0006 --temp_pool gru --window 30`` or
@@ -52,13 +59,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 def evaluate_model(args: argparse.Namespace):
     """Returns ``(results, gts, metrics)``: probabilities and labels keyed
     by ``frames/<video>.mp4/<chunk>/<frame>.jpg``, and the metric set; three
-    empty dicts under ``--save_feats``."""
-    from tennis_torch.data.loader import DataLoader, eval_iter
-    from tennis_torch.data.tennis_set import get_image_path
-    from tennis_torch.inference import make_eval_step, \
-        make_extract_features, resolve_device
-    from tennis_torch.utils import checkpoint as ckpt
-    from tennis_torch.utils.experiments import experiment_dir, setup_logging
+    empty dicts under ``--save_feats``. Runs on every rank of the world
+    the flags make; returns rank 0's."""
+    from tennis_torch.parallel.distributed import rank_environment, \
+        run_ranks
 
     train_driver.refuse_unported(args)
     pool = args.temp_pool if args.temp_pool in ("max", "mean") else None
@@ -68,9 +72,28 @@ def evaluate_model(args: argparse.Namespace):
         raise ValueError("--save_feats cannot combine with --temp_pool "
                          "max|mean: the pooled wrap has no per-frame feature "
                          "dump (dump from the donor experiment instead)")
-    device = resolve_device(args.device)
+    # every local device, as the JAX evaluator's make_mesh() takes
+    local, kw = rank_environment(args, -1, args.batch_size)
+    return run_ranks("tennis_torch.evaluate:run_rank", (args,), local, kw)
+
+
+def run_rank(args: argparse.Namespace):
+    """:func:`evaluate_model` on this rank of the world."""
+    from tennis_torch.data.loader import DataLoader
+    from tennis_torch.data.tennis_set import get_image_path
+    from tennis_torch.inference import make_eval_step, \
+        make_extract_features, resolve_device
+    from tennis_torch.parallel.distributed import current_world, \
+        host_batch_slice
+    from tennis_torch.utils import checkpoint as ckpt
+    from tennis_torch.utils.experiments import experiment_dir, setup_logging
+
+    pool = args.temp_pool if args.temp_pool in ("max", "mean") else None
+    world = current_world(resolve_device(args.device))
+    device = world.device
     exp_dir = experiment_dir("vision", args.model_id)
-    setup_logging(exp_dir, vars(args))
+    if world.is_main:
+        setup_logging(exp_dir, vars(args))
 
     test_set = train_driver.make_eval_dataset(args, args.split)
     log.info(test_set)
@@ -80,8 +103,9 @@ def evaluate_model(args: argparse.Namespace):
     model = train_driver.build_model(args, test_set.num_class,
                                      feats and not pool)
     loader = DataLoader(
-        test_set, batch_size=args.batch_size, shuffle=False,
-        num_workers=train_driver._num_workers(args, 8),
+        test_set, batch_size=host_batch_slice(args.batch_size),
+        shuffle=False, num_workers=train_driver._num_workers(args, 8),
+        num_shards=world.size, shard_id=world.rank,
         transform=None if feats else
         train_driver._geometry_transform(args, False))
 
@@ -104,7 +128,7 @@ def evaluate_model(args: argparse.Namespace):
     metrics = train_driver._metric_set(test_set.classes)
     results, gts = {}, {}
     tic = time.time()
-    for probs, labels, idxs in eval_iter(
+    for probs, labels, idxs in train_driver.eval_batches(
             loader, lambda x: torch.softmax(step(x), dim=-1), device):
         for m in metrics.values():
             m.update(labels, probs)
@@ -117,10 +141,10 @@ def evaluate_model(args: argparse.Namespace):
     for name, value in metrics["prf1"].get():
         log.info("test %s=%.4f", name, value)
     log.info("confusion:\n%s", metrics["prf1"].confusion_str())
-    if args.metrics_out:
+    if args.metrics_out and world.is_main:
         with open(args.metrics_out, "w") as f:
             json.dump(metrics["prf1"].get_dict(), f)
-    if args.vis:
+    if args.vis and world.is_main:
         from tennis_torch.utils.visualisation import visualise_events
 
         out_path = os.path.join(exp_dir, "results.mp4")

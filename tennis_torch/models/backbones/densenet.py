@@ -35,6 +35,7 @@ import math
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -103,13 +104,37 @@ class _BatchNormReLU(torch.autograd.Function):
     add). ``running=(mean, var)`` normalizes with those statistics in
     place of the batch's (a frozen BN, flax ``use_running_average=True``
     under training): they are returned as given, and x's gradient has no
-    path through them."""
+    path through them, and no collective runs.
+
+    Under a process group (data parallelism) the statistics are the
+    **global** batch's, as under GSPMD in the JAX package: the forward
+    all-reduces the per-channel sums of x and x^2 and the count, in at
+    least f32, and takes ``mean = sum / count``, ``E[x^2] = sum_sq /
+    count``; the backward all-reduces its two per-channel sums through the
+    statistics (of the gradient, and of the gradient times x), so that x's
+    gradient is that of the sum of every rank's loss, while weight and bias
+    keep this rank's share, which the train step's gradient all-reduce
+    adds up (``torch.nn.SyncBatchNorm`` splits it the same way). Every rank
+    then holds the same statistics for the running update."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps, sliced, relu=True, running=None):
         acc = torch.promote_types(x.dtype, torch.float32)
         dims = tuple(range(x.dim() - 1))
-        if running is None:
+        sync = running is None and dist.is_available() \
+            and dist.is_initialized()
+        n = x.numel() // x.shape[-1]
+        if sync:
+            xf = x.to(acc)
+            C = x.shape[-1]
+            sums = torch.cat([xf.sum(dims), xf.square().sum(dims),
+                              xf.new_full((1,), n)])
+            del xf
+            dist.all_reduce(sums)
+            n = sums[-1]
+            mean = sums[:C] / n
+            var = sums[C:2 * C] / n - mean * mean
+        elif running is None:
             xf = x.to(acc)
             mean = xf.mean(dims)
             var = xf.square().mean(dims) - mean * mean
@@ -132,6 +157,8 @@ class _BatchNormReLU(torch.autograd.Function):
                               live)
         ctx.sliced = sliced
         ctx.frozen = running is not None
+        ctx.sync = sync
+        ctx.n = n  # the (global) count: a tensor under a group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -139,18 +166,27 @@ class _BatchNormReLU(torch.autograd.Function):
     def backward(ctx, dy, _mean, _var):
         x, y, weight, mean, rstd, mul, live = ctx.saved_tensors
         dims = tuple(range(x.dim() - 1))
-        n = x.numel() // x.shape[-1]
+        n = ctx.n
         acc = mean.dtype
         g = (dy if y is None else torch.where(y > 0, dy, 0)).to(acc)
         xf = x.to(acc)
         d_shift = g.sum(dims)
-        d_mul = (g * xf).sum(dims) - mean * d_shift
+        gx = (g * xf).sum(dims)
+        d_mul = gx - mean * d_shift
         m = mul.to(x.dtype).to(acc) if ctx.sliced else mul
         if ctx.frozen:
             dx = g * m
         else:
-            d_mean = -mul * d_shift
-            d_var = torch.where(live, -0.5 * rstd ** 3 * weight * d_mul, 0.0)
+            all_shift, all_mul = d_shift, d_mul
+            if ctx.sync:  # the statistics' gradient over every rank's rows
+                C = d_shift.shape[0]
+                sums = torch.cat([d_shift, gx])
+                dist.all_reduce(sums)
+                all_shift = sums[:C]
+                all_mul = sums[C:] - mean * all_shift
+            d_mean = -mul * all_shift
+            d_var = torch.where(live, -0.5 * rstd ** 3 * weight * all_mul,
+                                0.0)
             d_mean = d_mean - 2 * mean * d_var
             dx = g * m + (d_mean / n + xf * (2 * d_var / n))
         return dx.to(x.dtype), d_mul * rstd, d_shift, None, None, None, None

@@ -176,6 +176,32 @@ def gru_route(T: int, B: int, H: int) -> str:
     return "async" if gru_plan(H, B) is not None else "barrier"
 
 
+# the JAX package's budget for its kernel's gates, outputs and weights
+# (``_VMEM_LIMIT_BYTES``, tennis_tpu/ops/pallas/gru.py)
+REFERENCE_BUDGET = 12 * 1024 * 1024
+
+
+def reference_runs_kernel(T: int, B: int, H: int) -> bool:
+    """Whether the JAX package runs its kernel at (T, B, H): its
+    ``gru_fits_vmem``, the f32 gates, outputs, Wh and h within
+    :data:`REFERENCE_BUDGET`. Never at H >= 1024, where Wh alone fills it."""
+    return 4 * (T * B * 4 * H + 3 * H * H + B * H) <= REFERENCE_BUDGET
+
+
+def gru_decode_route(T: int, B: int, H: int) -> str:
+    """How a GRU layer inside ``ops.rnn.gru_decode()`` runs (T, B, H):
+    ``"plain"``, the layer's plain differentiable recurrence, only where
+    no kernel of the card takes the shape (:func:`gru_fits_smem`) and the
+    JAX package runs its scan too (:func:`reference_runs_kernel` fails);
+    else the variant :func:`gru_route` picks, which on the card launches
+    or raises (H 640 at the 0102 encoder's T 128, B 4, where the JAX
+    package runs its kernel and no card kernel takes H, raises). It reads
+    the shapes alone, before any launch."""
+    if not gru_fits_smem(T, B, H) and not reference_runs_kernel(T, B, H):
+        return "plain"
+    return gru_route(T, B, H)
+
+
 def gru_recurrence_reference(gates_x, h0, wh, bh, valid_length=None):
     """Plain PyTorch version of the kernel: a loop over T in f32.
 
@@ -354,6 +380,8 @@ def gru_recurrence(gates_x, h0, wh, bh, valid_length=None,
 # kernel launches, so a run can show it took a kernel, and which one
 gru_recurrence.launches = 0
 gru_recurrence.variant_launches = dict.fromkeys(VARIANTS, 0)
+# layers that gru_decode_route sent to the plain recurrence, on any device
+gru_recurrence.plain_routed = 0
 
 
 def gru_sequence(x, h0, wx, wh, bx, bh, valid_length=None):

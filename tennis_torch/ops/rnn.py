@@ -13,8 +13,12 @@ matmul. Then, as in the JAX package, the recurrence takes one of two paths:
 - inside :func:`gru_decode` (the counterpart of the JAX ``pallas_gru``
   context, which the translator sets around its decode), a GRU layer runs
   :func:`tennis_torch.ops.gru.gru_recurrence`: the forward-only CUDA kernel
-  for tensors on the card, its plain version on the CPU. A gradient there
-  raises, on either device;
+  for tensors on the card, its plain version on the CPU; a shape that no
+  card kernel takes and past the JAX kernel's budget (H >= 1024,
+  ``ops.gru.gru_decode_route``) runs the plain recurrence below, as the
+  JAX package runs its scan there, and counts in
+  ``gru_recurrence.plain_routed``. A gradient there raises, on either
+  device;
 - everywhere else (training, the per-epoch loss, every LSTM) a plain
   differentiable per-step recurrence, the counterpart of the JAX
   ``_RecurrentStep`` scan, which autograd goes through; under
@@ -36,6 +40,7 @@ import contextvars
 import torch
 from torch import nn
 
+from tennis_torch.ops import gru as gru_ops
 from tennis_torch.ops.gru import gru_recurrence
 from tennis_torch.ops.masking import reverse_sequence, sequence_mask
 
@@ -247,10 +252,15 @@ class RNNLayer(nn.Module):
                 raise RuntimeError(
                     "the GRU decode context is forward-only: no gradient may "
                     "be required inside gru_decode()")
-            # the kernel runs in f32, as the JAX package's Pallas path
-            ys, final = gru_recurrence(gx.float(), initial_state.float(),
-                                       h2h.weight.t(), h2h.bias, vl)
-            ys, final = ys.to(dt), final.to(dt)
+            if gru_ops.gru_decode_route(T, B, H) == "plain":
+                gru_ops.gru_recurrence.plain_routed += 1
+                ys, final = _gru_recurrence(gx, _affine(h2h, dt),
+                                            initial_state, vl)
+            else:
+                # the kernel runs in f32, as the JAX package's Pallas path
+                ys, final = gru_recurrence(gx.float(), initial_state.float(),
+                                           h2h.weight.t(), h2h.bias, vl)
+                ys, final = ys.to(dt), final.to(dt)
         else:
             ys, final = _gru_recurrence(gx, _affine(h2h, dt), initial_state,
                                         vl)

@@ -37,6 +37,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tennis_torch.parallel.distributed import current_world
+from tennis_torch.parallel.mesh import World
+
 
 def piecewise_constant_schedule(init_value: float,
                                 boundaries_and_scales: dict | None = None):
@@ -139,26 +142,87 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
         int(mixed[0]) << 32 | int(mixed[1]))
 
 
+BUCKET_BYTES = 32 << 20  # gradient bytes per all-reduce
+
+
+def all_reduce_mean(grads: list, world: World, loss: torch.Tensor):
+    """The gradients and the loss averaged over the world: summed in flat
+    buckets of up to ``BUCKET_BYTES`` per dtype (the loss rides in the
+    first f32 one), then divided by the world size. Returns ``(grads,
+    loss)``; without a process group, as given."""
+    if not world.grouped:
+        return grads, loss
+    import torch.distributed as dist
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    items = [loss.detach().reshape(1).float()] + list(grads)
+    out = [None] * len(items)
+    by_dtype: dict = {}
+    for i, t in enumerate(items):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        bucket, size = [], 0
+        for j, i in enumerate(idx):
+            bucket.append(i)
+            size += items[i].numel() * items[i].element_size()
+            if size >= BUCKET_BYTES or j == len(idx) - 1:
+                tensors = [items[k] for k in bucket]
+                flat = _flatten_dense_tensors(tensors)
+                dist.all_reduce(flat)
+                flat.div_(world.size)
+                for k, t in zip(bucket, _unflatten_dense_tensors(flat,
+                                                                 tensors)):
+                    out[k] = t
+                bucket, size = [], 0
+    return out[1:], out[0][0].to(loss.dtype)
+
+
+def stripe_rows(world: World, n_local: int, device) -> tuple | None:
+    """Where this rank's rows sit in the global batch, as the world-striped
+    loader deals them: ``(global batch, positions)``, position ``rank + i *
+    size`` for local row i; None without a process group. A preprocess
+    draws its per-row randomness for the global batch and takes these
+    rows, so that a sample gets the draw of its single-process row."""
+    if not world.grouped:
+        return None
+    pos = world.rank + world.size * torch.arange(n_local, device=device)
+    return world.size * n_local, pos
+
+
 def make_train_step(state: TrainState, preprocess: Callable | None = None,
                     rng_seed: int = 0, loss_fn: Callable = softmax_ce):
     """``step(images, labels) -> (loss, logits)``, both detached on the
     model's device: ``preprocess(images, generator)`` (the generator from
-    ``(rng_seed, state.step)``), the train-mode forward, the loss, the
-    gradients of the trained parameters, the update; the parameters, BN
-    buffers, optimizer state and ``state.step`` change in place."""
+    ``(rng_seed, state.step)``; under a process group also ``rows``, from
+    :func:`stripe_rows`),
+    the train-mode forward, the loss, the gradients of the trained
+    parameters, the update; the parameters, BN buffers, optimizer state and
+    ``state.step`` change in place.
+
+    Under a process group (read at each call, as the BN function reads
+    it) the images are this rank's rows of the global batch: the BN
+    statistics are the global batch's (the BN function all-reduces them),
+    the gradients and the loss are averaged over the ranks before the
+    update (:func:`all_reduce_mean`), so every rank makes the
+    single-process update of the global batch; the logits stay this
+    rank's."""
     model = state.model
 
     def step(images: torch.Tensor, labels) -> tuple:
+        world = current_world()
         images = torch.as_tensor(images)
         labels = torch.as_tensor(labels, device=images.device)
         if preprocess is not None:
-            images = preprocess(images, step_generator(rng_seed, state.step,
-                                                       images.device))
+            generator = step_generator(rng_seed, state.step, images.device)
+            rows = stripe_rows(world, images.shape[0], images.device)
+            images = preprocess(images, generator) if rows is None \
+                else preprocess(images, generator, rows)
         model.train()
         logits = model(images, train=True)
         loss = loss_fn(logits, labels)
         trained = state.trained
         grads = torch.autograd.grad(loss, list(trained.values()))
+        grads, loss = all_reduce_mean(list(grads), world, loss)
         state.tx.update(trained, dict(zip(trained, grads)), state.opt_state)
         state.step += 1
         return loss.detach(), logits.detach()
@@ -264,6 +328,16 @@ def create_seq2seq_state(model: torch.nn.Module, tx: ClippedOptimizer,
     return state
 
 
+def rank_seed(seed: int, world: World) -> int:
+    """The host seed of this rank's dropout and augment draws: the step's
+    seed on rank 0 (and without a group), one mixed from ``(seed, rank)``
+    on the others, so that no two ranks draw the same masks."""
+    if world.rank == 0:
+        return int(seed)
+    return int(np.random.SeedSequence([int(seed), world.rank])
+               .generate_state(1, np.uint32)[0])
+
+
 def make_seq2seq_train_step(state: TrainState, loss_fn: Callable):
     """``step(src, tgt, src_vl, tgt_vl, seed) -> loss`` (detached, on the
     model's device) for the captioner: the train-mode forward of ``model(src,
@@ -274,15 +348,25 @@ def make_seq2seq_train_step(state: TrainState, loss_fn: Callable):
     stream), ``loss_fn(logits, tgt[:, 1:], tgt_vl - 1)``, the gradients of
     the trained parameters (under ``freeze_backbone`` the backbone's
     backward is not run), and the update in place; the backbone's running
-    statistics move in the forward; ``state.step`` counts the steps."""
+    statistics move in the forward; ``state.step`` counts the steps.
+
+    Under a process group (read at each call) the arrays are this rank's contiguous
+    rows of the global batch, padded to the global batch's lengths (so that
+    ``average="padded"`` divides by the global T); the gradients and the
+    loss are averaged over the ranks before the clip and the update
+    (:func:`all_reduce_mean`), the backbone's BN statistics are the global
+    batch's, and the dropout masks and augment draws come from
+    :func:`rank_seed`, each rank drawing for its own rows."""
     model = state.model
 
     def step(src, tgt, src_vl, tgt_vl, seed) -> torch.Tensor:
+        world = current_world()
         src = torch.as_tensor(src)
         dev = src.device
         tgt, src_vl, tgt_vl = (torch.as_tensor(x).to(dev)
                                for x in (tgt, src_vl, tgt_vl))
         model.train()
+        seed = rank_seed(seed, world)
         generator = torch.Generator(device=dev).manual_seed(int(seed))
         augment = step_generator(int(seed), 1, dev) \
             if src.dtype == torch.uint8 else None
@@ -292,6 +376,7 @@ def make_seq2seq_train_step(state: TrainState, loss_fn: Callable):
         loss = loss_fn(logits, tgt[:, 1:], tgt_vl - 1)
         trained = state.trained
         grads = torch.autograd.grad(loss, list(trained.values()))
+        grads, loss = all_reduce_mean(list(grads), world, loss)
         state.tx.update(trained, dict(zip(trained, grads)), state.opt_state)
         state.step += 1
         return loss.detach()

@@ -43,11 +43,23 @@ CUDA kernel; ResNet-v2 and R(2+1)D run cuDNN convolutions, as the JAX
 package runs XLA's; the train step runs plain torch ops, as the JAX package
 trains through its flax module (the CNN-RNN's GRU too: the GRU kernel is the
 captioner's decode's). ``--vis`` is accepted and does nothing, as in the
-JAX trainer (``evaluate --vis`` renders). Every option that the port does
-not run yet raises ``NotImplementedError`` naming its ``ROADMAP.md`` slice.
+JAX trainer (``evaluate --vis`` renders). ``--pretrained_npz``, which the
+port does not run yet, raises ``NotImplementedError`` naming its
+``ROADMAP.md`` slice.
+
+Data parallelism: ``--num_devices`` (``-1``, the default: every local GPU;
+one rank with ``--device cpu``, where ``N`` runs N gloo ranks) starts one
+process per rank (``parallel.distributed.launch``), and ``--multihost
+--coordinator host:port --num_hosts H --host_id h`` makes this host h of H.
+``--batch_size`` stays global: each rank takes its stripe of every global
+batch, the BN statistics and the gradients are the global batch's, the
+evaluations gather every rank's rows (``sharded_eval_iter``), and only
+global rank 0 writes the experiment's files; ``--save_feats`` has each
+rank write its own rows.
 
 Run: ``python -m tennis_torch.train --model_id 0006 --backbone DenseNet121``
-(add ``--save_feats`` for the dump; ``--device cpu`` off the GPU);
+(add ``--save_feats`` for the dump; ``--device cpu`` off the GPU;
+``--num_devices 2`` for two GPUs);
 ``--model_id 0031 --backbone rdnet --window 8 --data_shape 224`` for
 R(2+1)D; ``--model_id
 0042 --backbone DenseNet121 --feats_model 0006 --temp_pool gru --window 30``
@@ -138,7 +150,8 @@ def add_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
              "per file)")
     add("--profile_steps", type=int, default=0,
         help="Trace this many train steps (training only)")
-    _add_bool(p, "multihost", "Multi-process run (not ported)")
+    _add_bool(p, "multihost", "Multi-host run (with --coordinator, "
+              "--num_hosts, --host_id)")
     add("--coordinator", default=None,
         help="multihost coordinator address host:port")
     add("--num_hosts", type=int, default=None, help="multihost process count")
@@ -158,9 +171,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def refuse_unported(args: argparse.Namespace):
     """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if args.multihost or args.num_devices > 1:
-        raise NotImplementedError("multi-device runs are not ported yet "
-                                  "(ROADMAP.md slice 9)")
     if args.pretrained_npz:
         raise NotImplementedError("--pretrained_npz needs the weight converter, "
                                   "not ported yet (ROADMAP.md slice 10)")
@@ -428,6 +438,9 @@ def _to_host(feats: torch.Tensor):
 def save_features(extract, datasets, loaders, device) -> dict:
     """Dump ``extract``'s f32 features of every sample of each dataset as
     ``.npy`` at its ``save_feature_path``, through ``loaders[split]``.
+    Under a process group each rank writes the rows of its loader stripe
+    (no collective), less the stripe's wrap-padded duplicates, which
+    another rank writes.
 
     Three things overlap: the copy of batch t+1 to the device (the prefetch
     threads), the forward of batch t, and the copy back and the writes of
@@ -437,6 +450,9 @@ def save_features(extract, datasets, loaders, device) -> dict:
     host waited for features to reach it) and ``write_drain_s`` (time the
     writes lagged the last forward)."""
     from tennis_torch.data.loader import prefetch_to_device
+    from tennis_torch.parallel.distributed import current_world
+
+    world = current_world(device)
 
     def write_one(ds, feat, idx):
         path = ds.save_feature_path(int(idx))
@@ -449,6 +465,7 @@ def save_features(extract, datasets, loaders, device) -> dict:
         tic = time.perf_counter()
         stats = {"files": 0, "copy_wait_s": 0.0, "prefetch": {}}
         pending, futures = None, []
+        stripe_off = 0
         with ThreadPoolExecutor(4) as writer:
 
             def flush(item):
@@ -467,6 +484,11 @@ def save_features(extract, datasets, loaders, device) -> dict:
             for images, _, idxs in prefetch_to_device(
                     iter(loaders[split]), device, stats=stats["prefetch"]):
                 staged = _to_host(extract(images))
+                if world.grouped:  # this stripe's wrapped duplicates
+                    pos = stripe_off + np.arange(len(idxs))
+                    stripe_off += len(idxs)
+                    idxs = np.asarray(idxs)[world.rank + pos * world.size
+                                            < len(ds)]
                 if pending is not None:
                     flush(pending)
                 pending = (staged, idxs)
@@ -482,11 +504,23 @@ def save_features(extract, datasets, loaders, device) -> dict:
     return report
 
 
+def eval_batches(loader, step, device):
+    """``(out, labels, idxs)`` host blocks of ``step`` over ``loader``:
+    ``eval_iter`` on one rank, ``sharded_eval_iter`` (every rank's rows,
+    gathered) under a process group."""
+    from tennis_torch.data.loader import eval_iter, sharded_eval_iter
+    from tennis_torch.parallel.distributed import grouped
+
+    if grouped():
+        return sharded_eval_iter(loader, loader.batch_size,
+                                 len(loader.dataset), step, device)
+    return eval_iter(loader, step, device)
+
+
 def _pooled_final_test(args, test_set, loader, device):
     """``--temp_pool max|mean``: no training. The framewise donor (best
     epoch of ``--feats_model``, else newest of ``--backbone_from_id``) has
     its backbone features pooled over the window and its own head applied."""
-    from tennis_torch.data.loader import eval_iter
     from tennis_torch.inference import make_eval_step
     from tennis_torch.utils import checkpoint as ckpt
     from tennis_torch.utils.experiments import experiment_dir
@@ -517,7 +551,7 @@ def _pooled_final_test(args, test_set, loader, device):
                           feats=bool(args.feats_model))
     metrics = _metric_set(test_set.classes)
     tic = time.time()
-    for logits, labels, _ in eval_iter(loader, step, device):
+    for logits, labels, _ in eval_batches(loader, step, device):
         for m in metrics.values():
             m.update(labels, logits)
     for name, m in metrics.items():
@@ -547,16 +581,18 @@ def _profile_train_steps(step, n: int, out_dir: str, device):
 
 
 def make_preprocess(args, dtype):
-    """The train step's ``preprocess(images, generator)``, the JAX step's:
-    the device augment of uint8 single frames without ``--flow``,
+    """The train step's ``preprocess(images, generator, rows=None)``, the
+    JAX step's: the device augment of uint8 single frames without
+    ``--flow`` (a data-parallel rank's ``rows`` of the global batch's
+    draws),
     ``device_prepare`` of any other uint8 input (clips flattened, 6-channel
     frames with the two-stream statistics), features as they are."""
     from tennis_torch.data.transforms import device_augment
     from tennis_torch.inference import prepare_input
 
-    def preprocess(images, generator):
+    def preprocess(images, generator, rows=None):
         if images.dtype == torch.uint8 and images.ndim == 4 and not args.flow:
-            return device_augment(images, generator, dtype)
+            return device_augment(images, generator, dtype, rows)
         return prepare_input(images, dtype)
 
     return preprocess
@@ -581,15 +617,24 @@ def fit(args, model, loaders: dict, exp_dir: str, device):
     first epoch into ``<exp_dir>/tb/profile``), then the val split through
     an eval step made anew (its BN operands folded from this epoch's
     weights), then the epoch file through the background writer, and its
-    ``scores.txt`` row only after it."""
+    ``scores.txt`` row only after it.
+
+    Under a process group the loaders are this rank's stripes:
+    the step is data-parallel, the evaluations gather every rank's rows,
+    rank 0 resumes first (it may quarantine a file) and alone writes the
+    epoch files, ``scores.txt`` and the summaries, and the others wait for
+    its writes before they read the best epoch."""
     from tennis_torch.bridge import state_from_flax, state_to_flax
-    from tennis_torch.data.loader import eval_iter, prefetch_to_device
+    from tennis_torch.data.loader import prefetch_to_device
     from tennis_torch.inference import make_eval_step
+    from tennis_torch.parallel.distributed import barrier, current_world, \
+        fetch_global, main_rank_first
     from tennis_torch.parallel.train_step import create_train_state, \
         make_train_step, sgd_with_schedule
     from tennis_torch.utils import checkpoint as ckpt
     from tennis_torch.utils.experiments import summary_writer
 
+    world = current_world(device)
     classes = loaders["train"].dataset.classes
     model.to(device)
     steps_per_epoch = max(1, len(loaders["train"]))
@@ -598,8 +643,9 @@ def fit(args, model, loaders: dict, exp_dir: str, device):
                               steps_per_epoch)
     state = create_train_state(model, tx, args.freeze_backbone)
     log.info("params: %.2fM", ckpt.param_count(model) / 1e6)
-    start_epoch = ckpt.resume_state(exp_dir,
-                                    lambda tree: state_from_flax(state, tree))
+    with main_rank_first(world):
+        start_epoch = ckpt.resume_state(
+            exp_dir, lambda tree: state_from_flax(state, tree))
     if start_epoch > 0:
         log.info("resumed from epoch %d", start_epoch - 1)
 
@@ -609,13 +655,13 @@ def fit(args, model, loaders: dict, exp_dir: str, device):
     def run_eval(split):
         step = make_eval_step(model, device)  # folds this epoch's weights
         metrics = _metric_set(classes)
-        for logits, labels, _ in eval_iter(loaders[split], step, device):
+        for logits, labels, _ in eval_batches(loaders[split], step, device):
             for m in metrics.values():
                 m.update(labels, logits)
         model.train()
         return metrics
 
-    tb = summary_writer(exp_dir)
+    tb = summary_writer(exp_dir) if world.is_main else None
     profile_left = args.profile_steps
     try:
         with ckpt.AsyncCheckpointer() as writer:
@@ -627,19 +673,24 @@ def fit(args, model, loaders: dict, exp_dir: str, device):
                 for images, labels, _ in prefetch_to_device(
                         iter(loaders["train"]), device):
                     if profile_left > 0 and n_batches == 1:
-                        _profile_train_steps(
-                            lambda: train_step(images, labels), profile_left,
-                            os.path.join(exp_dir, "tb", "profile"), device)
+                        if world.is_main:
+                            _profile_train_steps(
+                                lambda: train_step(images, labels),
+                                profile_left,
+                                os.path.join(exp_dir, "tb", "profile"), device)
+                            log.info("profiler trace written to "
+                                     "%s/tb/profile", exp_dir)
+                        else:  # the same steps, hence the same collectives
+                            for _ in range(profile_left):
+                                train_step(images, labels)
                         profile_left = 0
-                        log.info("profiler trace written to %s/tb/profile",
-                                 exp_dir)
                     loss, logits = train_step(images, labels)
                     n_batches += 1
-                    n_samples += len(labels)
+                    n_samples += len(labels) * world.size
                     if n_batches % args.log_interval == 0 or n_batches == 1:
                         loss_v = float(loss)
                         train_metrics["prf1"].update(
-                            np.asarray(labels), logits.float().cpu().numpy())
+                            *fetch_global((np.asarray(labels), logits)))
                         rate = n_samples / max(time.time() - tic, 1e-6)
                         log.info("[Epoch %d][Batch %d] loss=%.4f %.1f "
                                  "samples/sec", epoch, n_batches, loss_v, rate)
@@ -664,16 +715,19 @@ def fit(args, model, loaders: dict, exp_dir: str, device):
                          score, accs, time.time() - tic)
                 if tb:
                     tb.add_scalar("val/AVG_NB_f1", score, epoch)
-                writer.save(ckpt.epoch_path(exp_dir, epoch),
-                            state_to_flax(state))
-                # the scores.txt row becomes durable only after its epoch
-                # file: a crash between hides an epoch, never dangles a row
-                writer.submit(
-                    lambda e=epoch, s=score: ckpt.append_score(exp_dir, e, s))
+                if world.is_main:
+                    writer.save(ckpt.epoch_path(exp_dir, epoch),
+                                state_to_flax(state))
+                    # the scores.txt row becomes durable only after its
+                    # epoch file: a crash between hides an epoch, never
+                    # dangles a row
+                    writer.submit(lambda e=epoch, s=score:
+                                  ckpt.append_score(exp_dir, e, s))
     finally:
         if tb:
             tb.close()
 
+    barrier(world)  # rank 0's files are written
     best = ckpt.best_epoch(exp_dir)
     if best is not None:
         state_from_flax(state, ckpt.load_raw(ckpt.epoch_path(exp_dir, best[0])))
@@ -695,30 +749,48 @@ def _num_workers(args, default: int) -> int:
 def train_and_evaluate(args: argparse.Namespace):
     """Train (returns the train state), run ``--save_feats`` (returns the
     per-split dump report) or the ``--temp_pool max|mean`` final test
-    (returns its metric set)."""
-    from tennis_torch.data.loader import DataLoader
-    from tennis_torch.inference import make_extract_features, resolve_device
-    from tennis_torch.utils import checkpoint as ckpt
-    from tennis_torch.utils.experiments import experiment_dir, setup_logging
+    (returns its metric set): in this process, or on every rank of a
+    data-parallel run (then rank 0's result)."""
+    from tennis_torch.parallel.distributed import rank_environment, \
+        run_ranks
 
     refuse_unported(args)
-    pooled = args.temp_pool in ("max", "mean") and not args.save_feats
-    training = not (args.save_feats or pooled)
     if args.save_feats and args.temp_pool in ("max", "mean"):
         raise ValueError("--save_feats needs a backbone-bearing model "
                          "(FrameModel); it cannot be combined with "
                          "--temp_pool/--feats_model configurations")
-    device = resolve_device(args.device)
+    local, kw = rank_environment(args, batch_size=args.batch_size)
+    return run_ranks("tennis_torch.train:run_rank", (args,), local, kw)
+
+
+def run_rank(args: argparse.Namespace):
+    """:func:`train_and_evaluate` on this rank of the world (the only one
+    without a process group)."""
+    from tennis_torch.data.loader import DataLoader
+    from tennis_torch.inference import make_extract_features, resolve_device
+    from tennis_torch.parallel.distributed import current_world, \
+        host_batch_slice
+    from tennis_torch.utils import checkpoint as ckpt
+    from tennis_torch.utils.experiments import experiment_dir, setup_logging
+
+    pooled = args.temp_pool in ("max", "mean") and not args.save_feats
+    training = not (args.save_feats or pooled)
+    world = current_world(resolve_device(args.device))
+    device = world.device
     exp_dir = experiment_dir("vision", args.model_id)
-    setup_logging(exp_dir, vars(args))
+    if world.is_main:
+        setup_logging(exp_dir, vars(args))
     feats = bool(args.feats_model)
     workers = _num_workers(args, os.cpu_count() or 8)
+    host_batch = host_batch_slice(args.batch_size)
 
     def loader(ds, train, sgd=False):
         """Every sample in order, the ragged last batch kept; or, for SGD,
-        shuffled with the last partial batch dropped."""
-        return DataLoader(ds, batch_size=args.batch_size, shuffle=sgd,
+        shuffled with the last partial batch dropped; this rank's stripe
+        of the global batches."""
+        return DataLoader(ds, batch_size=host_batch, shuffle=sgd,
                           seed=args.seed, num_workers=workers, drop_last=sgd,
+                          num_shards=world.size, shard_id=world.rank,
                           transform=None if feats else
                           _geometry_transform(args, train))
 

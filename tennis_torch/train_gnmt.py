@@ -37,8 +37,16 @@ DenseNet dense layer through the f32 dense-layer kernel on the card.
 ``--backbone_from_id`` grafts a vision experiment's newest ``backbone``
 (parameters and statistics) onto ``src_embed``, checked for structure;
 ``--freeze_backbone`` leaves ``src_embed`` out of the clip and the update.
-``--pretrained_npz`` and ``--num_devices > 1`` raise
-``NotImplementedError``.
+``--pretrained_npz`` raises ``NotImplementedError``.
+
+``--num_devices N`` (N > 1; the default ``-1`` is one device, as in the
+JAX trainer) trains data-parallel on N ranks (N GPUs, or N gloo ranks with
+``--device cpu``): every rank builds the same bucketed loader, whose batch
+sizes are multiples of N, and takes its contiguous rows of each global
+batch (padded to that batch's lengths); the gradients are averaged over
+the ranks before the clip; the per-epoch decodes deal out each padded
+batch's rows and gather the sentences; only rank 0 writes the
+experiment's files.
 
 Run: ``python -m tennis_torch.train_gnmt --model_id 0102 --feats_model 0006
 --num_hidden 256``, or on the pixels path ``--backbone DenseNet121
@@ -155,9 +163,6 @@ def build_model(args: argparse.Namespace, vocab_size: int,
 def refuse_unported(args: argparse.Namespace):
     """Raise for what the port does not train yet, and for the flag sets
     the JAX driver refuses."""
-    if args.num_devices > 1:
-        raise NotImplementedError("--num_devices > 1 is not ported yet "
-                                  "(ROADMAP.md slice 9)")
     if args.pretrained_npz and args.feats_model:
         raise ValueError(
             "--pretrained_npz needs the pixels path; --feats_model consumes "
@@ -238,10 +243,11 @@ def transplant_backbone(model, args):
              latest)
 
 
-def make_loader(args, dataset, split: str):
+def make_loader(args, dataset, split: str, batch_multiple: int = 1):
     """The bucketed loader of a split: the train split shuffled by
-    ``--seed`` and bucketed on frames, val and test in order and bucketed
-    on caption length; time axes padded to multiples of 8."""
+    ``--seed`` and bucketed on frames, its batch sizes multiples of
+    ``batch_multiple``; val and test in order and bucketed on caption
+    length; time axes padded to multiples of 8."""
     from tennis_torch.data.bucketing import BucketedCaptionLoader
 
     train = split == "train"
@@ -250,6 +256,7 @@ def make_loader(args, dataset, split: str):
         args.num_buckets, args.bucket_scheme, args.bucket_ratio,
         shuffle=train, seed=args.seed if train else 0,
         num_workers=args.num_workers, pad_multiple=8,
+        batch_multiple=batch_multiple if train else 1,
         key_element=0 if train else -1)
 
 
@@ -267,18 +274,45 @@ def make_translator(args, model, vocab):
         max_length=args.tgt_max_len + 20)
 
 
+def rank_batches(loader):
+    """The batches of ``loader`` as this rank takes them: as they are
+    without a process group; else each padded to a multiple of the world
+    size (``pad_batch``) with a weight of 1 a loader row and 0 a pad row
+    after its four arrays, and this rank's contiguous rows of the arrays
+    and the weights (``shard_rows``); the rest (the sample indices) whole."""
+    from tennis_torch.parallel.distributed import current_world
+    from tennis_torch.parallel.mesh import pad_batch, shard_rows
+
+    world = current_world()
+    for batch in iter(loader):
+        if not world.grouped:
+            yield batch
+            continue
+        arrays, rest = tuple(batch[:4]), tuple(batch[4:])
+        (arrays), n = pad_batch(arrays, world.size)
+        weights = (np.arange(arrays[0].shape[0]) < n).astype(np.float32)
+        yield (*shard_rows((*arrays, weights), world.rank, world.size),
+               *rest)
+
+
 def decode_split(translator, vocab, loader, device, on_batch=None):
     """Beam-decode every point of ``loader``'s split: the top hypotheses
     as token lists, in dataset order. ``on_batch(src, tgt, src_vl,
-    tgt_vl)`` (device tensors) runs before each batch's decode."""
+    tgt_vl)`` (device tensors; under a process group this rank's rows and,
+    last, their weights, 0 on pad rows) runs before each batch's decode.
+    Under a process group each rank decodes its rows of each batch
+    (:func:`rank_batches`) and the translator gathers every rank's."""
     from tennis_torch.data.loader import prefetch_to_device
+    from tennis_torch.parallel.distributed import grouped
 
     hyps, order = [], []
-    for src, tgt, src_vl, tgt_vl, idxs in prefetch_to_device(
-            iter(loader), device, moved=4):
+    for batch in prefetch_to_device(rank_batches(loader), device,
+                                    moved=5 if grouped() else 4):
+        src, src_vl, idxs = batch[0], batch[2], batch[-1]
         if on_batch is not None:
-            on_batch(src, tgt, src_vl, tgt_vl)
-        hyps.extend(translator.translate_tokens(src, src_vl, vocab))
+            on_batch(*batch[:-1])
+        toks = translator.translate_tokens(src, src_vl, vocab)
+        hyps.extend(toks[:len(idxs)])
         order.extend(np.asarray(idxs).tolist())
     ordered = [None] * len(hyps)
     for pos, ds_idx in enumerate(order):
@@ -289,15 +323,30 @@ def decode_split(translator, vocab, loader, device, on_batch=None):
 def train(args: argparse.Namespace, datasets=None):
     """Train the captioner the flags describe from the newest readable
     epoch of ``models/captioning/experiments/<model_id>`` to ``--epochs``;
-    returns the train state. ``datasets`` (train, val, test) replaces the
-    on-disk splits: objects with the captions-mode ``TennisSet`` surface
-    (``vocab``, ``get_captions``, ``get_data_lens``, items)."""
+    returns the train state (rank 0's under ``--num_devices > 1``).
+    ``datasets`` (train, val, test) replaces the on-disk splits: objects
+    with the captions-mode ``TennisSet`` surface (``vocab``,
+    ``get_captions``, ``get_data_lens``, items)."""
+    from tennis_torch.parallel.distributed import rank_environment, \
+        run_ranks
+
+    refuse_unported(args)
+    ranks, kw = rank_environment(args, max(args.num_devices, 1),
+                                 args.batch_size)
+    return run_ranks("tennis_torch.train_gnmt:run_rank", (args, datasets),
+                     ranks, kw)
+
+
+def run_rank(args: argparse.Namespace, datasets=None):
+    """:func:`train` on this rank of the world."""
     from tennis_torch.bridge import state_from_flax, state_to_flax
     from tennis_torch.data.loader import prefetch_to_device
     from tennis_torch.data.vocab import load_embeddings
     from tennis_torch.inference import fold_densenets, resolve_device
     from tennis_torch.metrics.nlg import nlg_metric_suite
     from tennis_torch.models.gnmt import masked_ce_loss
+    from tennis_torch.parallel.distributed import all_reduce_sum_, \
+        current_world, main_rank_first
     from tennis_torch.parallel.train_step import adam_with_clip, \
         create_seq2seq_state, make_seq2seq_train_step
     from tennis_torch.utils import checkpoint as ckpt
@@ -305,10 +354,12 @@ def train(args: argparse.Namespace, datasets=None):
     from tennis_torch.utils.experiments import experiment_dir, \
         setup_logging, summary_writer
 
-    refuse_unported(args)
-    device = resolve_device(args.device)
+    world = current_world(resolve_device(args.device))
+    device = world.device
+    main = world.is_main
     exp_dir = experiment_dir("captioning", args.model_id)
-    setup_logging(exp_dir, vars(args))
+    if main:
+        setup_logging(exp_dir, vars(args))
 
     data_train, data_val, data_test = datasets or make_datasets(args)
     vocab = data_train.vocab
@@ -317,11 +368,13 @@ def train(args: argparse.Namespace, datasets=None):
 
     val_tgt = data_val.get_captions(split=True)
     test_tgt = data_test.get_captions(split=True)
-    write_sentences(val_tgt, os.path.join(exp_dir, "val_gt.txt"))
-    write_sentences(test_tgt, os.path.join(exp_dir, "test_gt.txt"))
+    if main:
+        write_sentences(val_tgt, os.path.join(exp_dir, "val_gt.txt"))
+        write_sentences(test_tgt, os.path.join(exp_dir, "test_gt.txt"))
 
-    loaders = {split: make_loader(args, ds, split) for split, ds in
-               (("train", data_train), ("val", data_val), ("test", data_test))}
+    loaders = {split: make_loader(args, ds, split, world.size) for split, ds
+               in (("train", data_train), ("val", data_val),
+                   ("test", data_test))}
     if len(loaders["train"]) == 0:
         raise SystemExit("train loader produced zero batches: add training "
                          "captions")
@@ -347,8 +400,9 @@ def train(args: argparse.Namespace, datasets=None):
     tx = adam_with_clip(args.clip, args.optimizer)
     state = create_seq2seq_state(
         model, tx, lr, args.freeze_backbone and not args.feats_model)
-    start_epoch = ckpt.resume_state(exp_dir,
-                                    lambda tree: state_from_flax(state, tree))
+    with main_rank_first(world):
+        start_epoch = ckpt.resume_state(
+            exp_dir, lambda tree: state_from_flax(state, tree))
     if start_epoch > 0:
         # keep compounding the decay from the restored learning rate
         lr = state.opt_state.learning_rate
@@ -365,18 +419,32 @@ def train(args: argparse.Namespace, datasets=None):
         fold_densenets(model)
         losses = []
 
-        def loss_of(src, tgt, src_vl, tgt_vl):
+        def loss_of(src, tgt, src_vl, tgt_vl, weights=None):
             with torch.no_grad():
                 logits = model(src, tgt[:, :-1], src_vl, tgt_vl - 1)
-                losses.append(masked_ce_loss(logits, tgt[:, 1:], tgt_vl - 1))
+                if weights is None:
+                    losses.append(masked_ce_loss(logits, tgt[:, 1:],
+                                                 tgt_vl - 1))
+                    return
+                # this rank's weighted sum and weight, summed over the
+                # ranks after the split: the batch's mean over its rows
+                mean = masked_ce_loss(logits, tgt[:, 1:], tgt_vl - 1,
+                                      sample_weights=weights)
+                total = weights.sum()
+                losses.append(torch.stack(
+                    [mean * torch.clamp(total, min=1.0), total]))
 
         hyps = decode_split(translator, vocab, loaders[split], device,
                             on_batch=loss_of)
-        losses = torch.stack(losses).cpu().numpy().tolist()
+        losses = torch.stack(losses)
+        if world.grouped:
+            all_reduce_sum_([losses])
+            losses = losses[:, 0] / losses[:, 1]
+        losses = losses.cpu().numpy().tolist()
         suite = nlg_metric_suite([[t] for t in tgt_sentences], hyps)
         return float(np.mean(losses)), suite, hyps
 
-    tb = summary_writer(exp_dir)
+    tb = summary_writer(exp_dir) if main else None
     best_bleu = -1.0
     seed_rng = np.random.default_rng(args.seed + 1)
     try:
@@ -385,8 +453,9 @@ def train(args: argparse.Namespace, datasets=None):
                 loaders["train"].set_epoch(epoch)
                 tic = time.time()
                 n_tokens, n_batches = 0, 0
-                for src, tgt, src_vl, tgt_vl in prefetch_to_device(
-                        iter(loaders["train"]), device, moved=4):
+                for src, tgt, src_vl, tgt_vl, *_ in prefetch_to_device(
+                        rank_batches(loaders["train"]), device,
+                        moved=4):
                     loss = train_step(src, tgt, src_vl, tgt_vl,
                                       np.uint32(seed_rng.integers(2 ** 31)))
                     n_batches += 1
@@ -417,23 +486,27 @@ def train(args: argparse.Namespace, datasets=None):
                         tb.add_scalar(f"test/{k}", v, epoch)
                     tb.add_text("val/captions",
                                 get_comp_str(val_tgt[:8], val_hyps[:8]), epoch)
-                write_sentences(val_hyps, os.path.join(
-                    exp_dir, f"epoch{epoch}_val_out.txt"))
-                write_sentences(test_hyps, os.path.join(
-                    exp_dir, f"epoch{epoch}_test_out.txt"))
+                if main:
+                    write_sentences(val_hyps, os.path.join(
+                        exp_dir, f"epoch{epoch}_val_out.txt"))
+                    write_sentences(test_hyps, os.path.join(
+                        exp_dir, f"epoch{epoch}_test_out.txt"))
                 # the decay of the last third, set before the epoch file so
                 # that the saved rate is the one the next epoch trains with
                 if epoch + 1 >= (args.epochs * 2) // 3:
                     lr *= args.lr_update_factor
                     state.opt_state.learning_rate = lr
                     log.info("lr decayed to %g", lr)
+                new_best = bleu4 > best_bleu
+                best_bleu = max(best_bleu, bleu4)
+                if not main:
+                    continue
                 tree = state_to_flax(state)
                 writer.save(ckpt.epoch_path(exp_dir, epoch), tree)
                 # the scores.txt row lands only after its epoch file
                 writer.submit(
                     lambda e=epoch, s=bleu4: ckpt.append_score(exp_dir, e, s))
-                if bleu4 > best_bleu:
-                    best_bleu = bleu4
+                if new_best:
                     # no optimizer state: the evaluator reads the weights only
                     writer.save(os.path.join(exp_dir, "valid_best.params"),
                                 {"batch_stats": tree["batch_stats"],

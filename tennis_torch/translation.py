@@ -7,8 +7,14 @@ under ``torch.inference_mode()`` on the model's device and encodes inside
 ``ops.rnn.gru_decode``, as the JAX translator encodes inside its
 ``pallas_gru`` context: the encoder's GRU recurrences take the forward-only
 CUDA kernel on the card. The translator is the only code of the package
-that sets that context. There is no per-shape compile cache and no mesh:
-PyTorch runs eagerly on one card.
+that sets that context. There is no per-shape compile cache: PyTorch
+runs eagerly.
+
+Under a process group (the JAX translator takes a ``mesh``) each rank
+decodes its own rows of a global batch, which the caller pads and deals
+out (``parallel.mesh.pad_batch`` and ``shard_rows``), and ``translate``
+returns every rank's rows, gathered in rank order (``fetch_global``). Every op of the search is per row, so a row
+decodes as it would in the whole batch.
 
 ``build_decoder`` is the trace surface of ``tennis_torch.export``: the same
 decode for a static batch, with the search as one ``while_loop``
@@ -75,14 +81,17 @@ class BeamSearchTranslator:
         array-like or tensor (features as f32, frames as they are),
         src_valid_length (B,) (float lengths are truncated to int32, as the
         JAX translator casts them); returns numpy (samples (B, K, L) int32,
-        scores (B, K), valid_length (B, K))."""
+        scores (B, K), valid_length (B, K)). Under a process group the rows
+        are this rank's and the results every rank's, in rank order (a
+        collective)."""
+        from tennis_torch.parallel.distributed import fetch_global
+
         dev = self.device
         src = torch.as_tensor(src, device=dev)
         if src.dtype != torch.uint8:
             src = src.float()
         vl = torch.as_tensor(src_valid_length, device=dev).to(torch.int32)
-        samples, scores, lengths = self.translate_tensors(src, vl)
-        return samples.cpu().numpy(), scores.cpu().numpy(), lengths.cpu().numpy()
+        return fetch_global(self.translate_tensors(src, vl))
 
     def translate_tokens(self, src, src_valid_length, vocab):
         """Top-beam hypotheses as token lists (BOS/EOS stripped)."""

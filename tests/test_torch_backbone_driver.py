@@ -183,7 +183,12 @@ def test_save_feats_writes_what_the_jax_driver_writes(chain, root,
 
 def test_serve_predicts_with_a_resnet(chain, tmp_path, monkeypatch):
     """``serve --backbone resnet18_v2`` on the experiment: /predict over
-    HTTP gives the eval step's softmax of the decoded frame."""
+    HTTP gives the eval step's softmax of the decoded frame, in the batch
+    the server runs: the request edge-padded to ``--batch_size 4``. A bf16
+    convolution's rounding depends on the batch (oneDNN takes another
+    kernel for 128 -> 256 at stride 2 at batch 1 than at batch 4, as XLA
+    does in the JAX server), so a batch-1 forward may lie a bf16 rounding
+    away from the served row."""
     import cv2
     from http.server import ThreadingHTTPServer
 
@@ -214,7 +219,8 @@ def test_serve_predicts_with_a_resnet(chain, tmp_path, monkeypatch):
 
     _, predict_probs, _ = load_classifier("resnet18_v2", "c", 32,
                                           device="cpu")
-    want = predict_probs(serve.decode_rgb(enc.tobytes(), 32)[None])[0]
+    frame = serve.decode_rgb(enc.tobytes(), 32)
+    want = predict_probs(np.stack([frame] * 4))[0]
     for r in results:
         assert r["label"] in r["classes"] and len(r["probs"]) == 11
         np.testing.assert_allclose(r["probs"], want, atol=1e-5)

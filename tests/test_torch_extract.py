@@ -269,17 +269,23 @@ def test_flags_equal_the_jax_drivers():
     assert train.parse_args(["--every=2,3,4"]).every == ["2", "3", "4"]
 
 
-@pytest.mark.parametrize("argv,match", [
-    pytest.param(["--save_feats", "--multihost"], "multi-device",
+@pytest.mark.parametrize("argv,error,match", [
+    # multi-device runs are ported; what the JAX driver refuses of them
+    # raises: --multihost without its coordinator, a global batch that does
+    # not divide across the devices (tennis_tpu/train.py:286-288)
+    pytest.param(["--save_feats", "--multihost"], ValueError, "coordinator",
                  id="argv1-multi-device"),
-    pytest.param(["--save_feats", "--num_devices=2"], "multi-device",
+    pytest.param(["--save_feats", "--num_devices=2", "--batch_size=7"],
+                 ValueError, "must divide across 2 devices",
                  id="argv2-multi-device"),
-    pytest.param(["--save_feats", "--pretrained_npz=w.npz"], "pretrained_npz",
+    pytest.param(["--save_feats", "--pretrained_npz=w.npz"],
+                 NotImplementedError, "pretrained_npz",
                  id="argv3-pretrained_npz"),
 ])
-def test_train_refuses_what_is_not_ported(argv, match, tmp_path, monkeypatch):
+def test_train_refuses_what_is_not_ported(argv, error, match, tmp_path,
+                                          monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         train.main(argv + ["--device=cpu"])
 
 

@@ -207,3 +207,33 @@ def test_flags_match_jax_serve():
             serve.parse_args([bad])
     with pytest.raises(SystemExit):
         serve.parse_args(["--device=tpu"])
+
+
+@pytest.mark.parametrize("seed", [0, 13, 25, 27])
+def test_batcher_thread_answers_as_the_padded_batch(seed):
+    """The batcher's forward, run in its own thread and reached from fresh
+    threads, gives each request the row that the same padded batch gives
+    in the calling thread, every time, for bf16 ResNet-18 weights at which
+    (on a CPU with AMX) a batch-1 forward differs from the batch-4 one."""
+    from tennis_torch.inference import make_predict_probs
+
+    g = torch.Generator().manual_seed(seed)
+    model = build_frame_model("resnet18_v2", 11, 32, generator=g)
+    for name, b in model.named_buffers():
+        if "running_var" in name:
+            b.uniform_(0.5, 2.0, generator=g)
+        elif "running_mean" in name:
+            b.normal_(0, 0.3, generator=g)
+    predict_probs = make_predict_probs(model, torch.device("cpu"))
+    frame = np.random.default_rng(seed).integers(0, 255, (32, 32, 3),
+                                                 dtype=np.uint8)
+    want = predict_probs(np.stack([frame] * 4))[0]
+    batcher = Batcher(predict_probs, batch_size=4, max_wait_s=0.0)
+    got = []
+    for _ in range(3):
+        t = threading.Thread(target=lambda: got.append(batcher.submit(frame)))
+        t.start()
+        t.join()
+    assert len(got) == 3
+    for row in got:
+        np.testing.assert_allclose(row, want, rtol=0, atol=1e-5)

@@ -253,9 +253,11 @@ def test_refusals(env):
     with pytest.raises(NotImplementedError, match="slice 10"):
         train_gnmt.main([f"--root={root}", "--device=cpu",
                          "--pretrained_npz=x.npz"])
-    with pytest.raises(NotImplementedError, match="num_devices"):
+    # --num_devices 2 trains data-parallel; a batch that does not divide
+    # across the devices raises, as in the JAX trainer
+    with pytest.raises(ValueError, match="must divide across 2 devices"):
         train_gnmt.main([f"--root={root}", "--device=cpu", "--feats_model=tf",
-                         "--num_devices=2"])
+                         "--num_devices=2", "--batch_size=3"])
     with pytest.raises(ValueError, match="pixels path"):
         train_gnmt.main([f"--root={root}", "--device=cpu", "--feats_model=tf",
                          "--pretrained_npz=x.npz"])
