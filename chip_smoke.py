@@ -52,7 +52,7 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    ``make_train_step``: ``apply_augment``, the bf16 train-mode forward and
    backward (plain torch ops and cuDNN, as the JAX package trains through
    its flax module), momentum SGD. With ``remat`` none and block: 3
-   warm-up and 5 timed steps each (step ms, samples/s, device busy and
+   warm-up and 3 timed steps each (step ms, samples/s, device busy and
    idle share over 2 profiled steps, the largest kernels, peak memory,
    model FLOPs and ``mfu`` against the dense bf16 peak). Gates: every loss
    finite; 30 steps on one repeated batch lower the loss; the first bf16
@@ -120,12 +120,16 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    pixel difference, ms a decode) and a 2160-line one at ``min_short``
    544 (the 1/2 DCT scale); nothing gated;
 5. GRU kernels vs plain version: ``gru_recurrence`` against
-   ``gru_recurrence_reference`` in f32, both kernels (``"async"`` at every
-   cluster size that takes the shape, and ``"barrier"`` where it fits), at
+   ``gru_recurrence_reference`` in f32, every kernel that takes the shape
+   (``"general"`` at every case, ``"async"`` at every cluster size that
+   takes it, and ``"barrier"`` where it fits), two launches bit for bit, at
    the 0102 serving shape (T 128, batch 4, H 256), the measured ``/caption``
    lengths 21/30/104/69 (every row ends before T), H 512, the evaluate batch
-   (32), the default width (H 128), T 1, and a per-epoch decode batch of the
-   captioning trainer (batch 32, T 512, lengths 64-512); device times of
+   (32), the default width (H 128), T 1, a per-epoch decode batch of the
+   captioning trainer (batch 32, T 512, lengths 64-512), and at the
+   ``/caption`` lengths the widths only the general kernel takes: H 300,
+   504, 640, 737 (the widest the JAX kernel takes at T 128, batch 4), 185
+   at batch 32 and 1020 at T 1; device times of
    each (the profiler's, and beside them ``event_device_ms``: CUDA events
    around one call queued behind a spinning stream, the clock a trace
    falls back to where every profiler session dropped its kernels), which
@@ -133,7 +137,13 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    (input GEMM + kernel) and cuDNN's ``nn.GRU`` over the same layer, the
    bound, and the serial floors: T cluster-barrier round trips for the
    barrier kernel, one ``st.async`` + mbarrier round trip of the kernel's
-   own exchange per live step for the async one;
+   own exchange per live step for the async and general ones, and for the
+   general one its streamed bytes a live step over one SM's share of the
+   card's L2 read rate. ``[wide_decode]``: a 0102-shaped decode (batch 4
+   over 128 frames at the ``/caption`` lengths) at ``--num_hidden`` 640
+   and 300 through ``BeamSearchTranslator``: 3 launches of the general
+   kernel each, no plain-routed layer, the samples of the plain decode
+   exactly;
 6. caption path: the 0102 captioner (features 4096, H 256, 2 layers, 1
    bidirectional, E 100, V 254) with seeded random weights in flax naming,
    served by ``make_service``: 8 concurrent ``POST /caption`` over HTTP at
@@ -147,7 +157,7 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    dropout 0.2, Adam 1e-3 and clip 5 over an in-memory train split of 512
    points (64-512 frames of seeded 4096-d features, captions of 8-50 ids),
    through ``make_seq2seq_train_step`` at ``--batch_size 128``: 3 warm-up
-   and 5 timed steps over the bucketed batches (step ms, target tokens/s,
+   and 3 timed steps over the bucketed batches (step ms, target tokens/s,
    source frames/s, device busy and idle share and launches over 2 profiled
    steps, the largest kernels, peak memory). Gates: every loss finite; 30
    steps on one batch lower the loss; the first step's loss (1e-4 relative)
@@ -174,7 +184,7 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    built by ``train.build_model`` from the driver's flags with seeded
    random weights in flax naming: ``[cnnrnn_train]``, the 0042 CNN-RNN's
    train step at its published configuration ((64, 30, 4096) features on
-   the device, bi-GRU 128 in bf16, SGD): 3 warm-up and 5 timed steps
+   the device, bi-GRU 128 in bf16, SGD): 3 warm-up and 3 timed steps
    (windows/s, device busy and idle share and launches over 2 profiled
    steps, the largest kernels, peak memory), then the LSTM cell (10 timed);
    gates: finite losses, 30 steps on one batch lower the loss, the first
@@ -188,7 +198,7 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    PRF1 the trainer's final test's. ``[two_stream]``: the 0010 net
    (``--flow twos``, two DenseNet121 streams) at 512^2, batch 64,
    ``--remat block``, over 256 seeded 6-channel frames on the device: 3
-   warm-up and 5 timed steps (samples/s, ``mfu`` of both streams, idle
+   warm-up and 3 timed steps (samples/s, ``mfu`` of both streams, idle
    share, launches a step, peak memory); ``--flow only`` and ``sixc`` 3
    steps each; after each an evaluation forward at batch 64: 116 (twos) or
    58 dense launches split as the route names them, logits within 5e-2 of
@@ -205,7 +215,7 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    that none was launched. ``[resnet_train]``: the drivers' default
    ``FrameModel(resnet18_v2, 11)`` at 512^2, batch 64, over the train
    phase's frames through the driver's step (device augment, bf16, SGD): 3
-   warm-up and 5 timed steps (samples/s, idle share, launches, the largest
+   warm-up and 3 timed steps (samples/s, idle share, launches, the largest
    kernels, peak memory, model FLOPs counted by ``FlopCounterMode`` and
    ``mfu``), then ``resnet50_v2`` for 3 steps; gates: finite losses, 30
    steps on one batch lower the loss, the first bf16 step against f32 and
@@ -217,7 +227,7 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    (batch-8 logits against the same model in f32 on the CPU); two-stream,
    ``only`` and ``sixc`` 3 steps each; the CNN-RNN over the dumped
    features 3 steps. ``[r21d_train]``: 0031 at 8 x 224^2, batch 64 with
-   ``--remat block`` and 32 without, 3 warm-up and 5 timed steps each
+   ``--remat block`` and 32 without, 3 warm-up and 3 timed steps each
    (clips/s, the same fields), window 32 at batch 16 for 3; gates: finite
    losses, 30 steps on one batch of 8 lower the loss, ``init_bn``'s
    statistics bit for bit unchanged and every other BN's moved, the first
@@ -244,7 +254,7 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    ``--emb_file`` of ``[pixcap_driver]``. ``[pixcap_train]``: the 0102
    widths with an f32 DenseNet121 ``src_embed`` at 512^2, ``--remat
    block``, over seeded in-memory uint8 points (batch 2 x 32 frames,
-   captions of 8-50 ids): 3 warm-up and 5 timed steps, frozen and not
+   captions of 8-50 ids): 3 warm-up and 3 timed steps, frozen and not
    (step ms, frames/s, target tokens/s, device busy and idle share, the
    largest kernels, peak memory); gates: finite losses, 30 steps on one
    point of 8 frames lower the loss, the first step at that size against
@@ -263,14 +273,15 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    port: 2 DenseNet121-512 train steps at batch 8 through the
    data-parallel step (in the group: BN sums and gradients all-reduced) against
    the same steps without a group (the first loss, the parameters against
-   a second plain run's spread: ``DDP_*``), 5 more of each timed, the NCCL
+   a second plain run's spread: ``DDP_*``), 3 more of each timed, the NCCL
    kernels' device ms and the bytes all-reduced a step; one
    ``sharded_eval_iter`` forward of 8
    frames (58 dense launches, the probabilities of ``eval_iter``
    exactly); a 0102-shaped decode (batch 4 over 128 frames, the sentences
    gathered through the group) at ``--num_hidden`` 1024, where no kernel
-   takes H (no GRU launch, 3 layers counted in ``plain_routed``, the
-   samples of the plain decode exactly), and at 256 (3 GRU launches);
+   takes H and ``gru_decode_route`` names the plain recurrence (no GRU
+   launch, 3 layers counted in ``plain_routed``, the samples of the plain
+   decode exactly), and at 256 (3 GRU launches);
    then the group is destroyed;
 7f. ``[pretrained]`` (after ``[ddp]``, before ``[predict]``; no trace):
    the weight converter and ``--pretrained_npz``. A seeded
@@ -330,16 +341,17 @@ N_REQUESTS = 16
 SEED = 0
 KERNELS = ["dense_layer", "dense_layer_persistent", "dense_layer_cluster",
            "dense_layer_f32_tc", "gru_recurrence",
-           "gru_recurrence_async"]
+           "gru_recurrence_async", "gru_recurrence_general"]
 # profiler name of each dense-layer kernel variant (no name holds another);
 # the cluster kernel's name also carries its cluster size, <2>, <4> or <8>
 DENSE_KERNELS = {"persistent": "dense_layer_persistent_kernel",
                  "tile": "dense_layer_kernel",
                  "cluster": "dense_layer_cluster_kernel",
                  "f32": "dense_layer_f32_tc_kernel"}
-# profiler name of each GRU kernel variant (neither name holds the other)
+# profiler name of each GRU kernel variant (no name holds another)
 GRU_KERNELS = {"barrier": "gru_recurrence_kernel",
-               "async": "gru_recurrence_async_kernel"}
+               "async": "gru_recurrence_async_kernel",
+               "general": "gru_recurrence_general_kernel"}
 ROUTE_ROUNDS = 3
 # profiler sessions tried before a trace that dropped kernel records fails
 # the run (three in a row did, once in a dozen runs), or, where all of them
@@ -367,7 +379,7 @@ CAP_TRAIN_ARGV = CAPTION_ARGV + [
     "--batch_size=128", "--test_batch_size=32", "--dropout=0.2",
     "--optimizer=adam", "--lr=0.001", "--clip=5", "--emb_file=",
     "--device=cuda"]
-CAP_WARMUP, CAP_TIMED, CAP_PROFILED = 3, 5, 2
+CAP_WARMUP, CAP_TIMED, CAP_PROFILED = 3, 3, 2
 CAP_CPU_ROWS = 16
 # the driver's EOS logit bias: far enough below every word's that its 12
 # Adam steps at 1e-3 cannot lift EOS into a beam, so every decode runs the
@@ -398,7 +410,7 @@ POOL_BATCH, POOL_WINDOW = 2, 8
 # training: the driver's --batch_size and default optimizer; the f32
 # comparison at a smaller batch, to hold two models' activations at once
 TRAIN_BATCH = 64
-TRAIN_WARMUP, TRAIN_TIMED, TRAIN_PROFILED = 3, 5, 2
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_PROFILED = 3, 3, 2
 OVERFIT_STEPS = 30
 F32_BATCH = 16
 # bf16 against f32, first step (PERF.md, Findings): relative loss, worst
@@ -429,7 +441,7 @@ CNNRNN_LOSS_TOL, CNNRNN_GRAD_TOL = 1e-5, 1e-4
 CLIP_BATCH, CLIP_TIMED = 2, 5
 # the two-stream net (0010, --flow twos; the JAX package's figure at
 # --remat block) over seeded 6-channel frames; --flow only and sixc briefly
-TWO_STREAM_FRAMES, TWO_STREAM_TIMED, OTHER_FLOW_STEPS = 256, 5, 3
+TWO_STREAM_FRAMES, TWO_STREAM_TIMED, OTHER_FLOW_STEPS = 256, 3, 3
 # ResNet-v2: the drivers' default backbone (resnet18_v2) at 512^2 over the
 # train phase's frames and batch, resnet50_v2 briefly. R(2+1)D: the 0031
 # row (--backbone rdnet --window 8 --data_shape 224) over R21D_POOL seeded
@@ -444,7 +456,7 @@ RESNET50_STEPS = 3
 R21D_SHAPE, R21D_WINDOW, R21D_POOL = 224, 8, 64
 R21D_ARGV = ["--backbone=rdnet", f"--window={R21D_WINDOW}",
              f"--data_shape={R21D_SHAPE}"]
-R21D_BATCH_REMAT, R21D_BATCH_NONE, R21D_W32_BATCH, R21D_TIMED = 64, 32, 16, 5
+R21D_BATCH_REMAT, R21D_BATCH_NONE, R21D_W32_BATCH, R21D_TIMED = 64, 32, 16, 3
 R21D_SMALL, R21D_OVERFIT_BATCH = 4, 8
 R21D_REMAT_LOSS_TOL, R21D_REMAT_GRAD_TOL = 1e-5, 1e-3
 # the first step's f32 update against the same step in f64 (global relative
@@ -481,7 +493,7 @@ PIXCAP_ARGV = ["--num_hidden=256", "--num_layers=2", "--num_bi_layers=1",
                f"--data_shape={DATA_SHAPE}", "--remat=block",
                "--optimizer=adam", "--lr=0.001", "--clip=5", "--device=cuda"]
 PIXCAP_BATCH, PIXCAP_FRAMES, PIXCAP_SMALL = 2, 32, 8
-PIXCAP_WARMUP, PIXCAP_TIMED = 3, 5
+PIXCAP_WARMUP, PIXCAP_TIMED = 3, 3
 PIXCAP_POOL = 64
 PIXCAP_POINTS = {"train": 8, "val": 4, "test": 4}
 PIXCAP_F64_LOSS_TOL, PIXCAP_F64_STATS_TOL = 1e-4, 1e-3
@@ -520,9 +532,11 @@ SKIPGRAM_PROBE = 8192  # pairs whose mean loss is taken before and after
 # DDP_UPDATE_FLOOR; then DDP_TIMED more steps of each, timed (the plain
 # ones before the group exists). One sharded evaluation forward of DDP_BATCH frames; a
 # 0102-shaped decode (batch 4 over 128 frames) at each of DDP_HIDDEN
-DDP_BATCH, DDP_STEPS, DDP_TIMED = 8, 2, 5
+DDP_BATCH, DDP_STEPS, DDP_TIMED = 8, 2, 3
 DDP_LOSS_TOL, DDP_UPDATE_FACTOR, DDP_UPDATE_FLOOR = 1e-3, 2.0, 1e-2
 DDP_HIDDEN = (1024, 256)
+# [wide_decode]: --num_hidden widths only the general GRU kernel takes
+WIDE_HIDDEN = (640, 300)
 
 # [pretrained]: seeded source-format weights (torchvision DenseNet121,
 # FlowNet2-S) through the converter's CLI into the drivers' loaders. One
@@ -540,15 +554,26 @@ PRETRAINED_FLOW_TOL = 1e-5
 # evaluate batch (--test_batch_size 32), the default --num_hidden, one step,
 # and a per-epoch decode batch of train_gnmt (batch 32 over sources of
 # 64-512 frames)
+CAPTION_LENGTHS = [21, 30, 104, 69]
 GRU_CASES = [
     ("serve_0102", 128, 4, 256, [128, 100, 37, 1]),
-    ("caption_lengths", 128, 4, 256, [21, 30, 104, 69]),
+    ("caption_lengths", 128, 4, 256, CAPTION_LENGTHS),
     ("serve_h512", 128, 4, 512, [128, 100, 37, 1]),
     ("evaluate_b32", 128, 32, 256, [128 * (31 - i) // 31 for i in range(32)]),
     ("default_h128", 128, 4, 128, [128, 100, 37, 1]),
     ("t1", 1, 4, 256, [1, 0, 1, 1]),
     ("decode_b32_t512", 512, 32, 256,
      [64 + 448 * ((7 * i) % 32) // 31 for i in range(32)]),
+    # widths only the general kernel takes, at the /caption lengths: a
+    # ragged H, one where the async plan fails, past the async kernel's
+    # 512 (streamed Wh), the widest the JAX kernel takes at the 0102
+    # encoder's shape, the evaluate batch (4 clusters), the widest at B 4
+    ("ragged_h300", 128, 4, 300, CAPTION_LENGTHS),
+    ("plan_gap_h504", 128, 4, 504, CAPTION_LENGTHS),
+    ("wide_h640", 128, 4, 640, CAPTION_LENGTHS),
+    ("edge_h737", 128, 4, 737, CAPTION_LENGTHS),
+    ("ragged_b32_h185", 128, 32, 185, CAPTION_LENGTHS * 8),
+    ("t1_h1020", 1, 4, 1020, [min(n, 1) for n in CAPTION_LENGTHS]),
 ]
 
 # (name, batch, side, c_in, c_final): first and last layer of each
@@ -2498,7 +2523,7 @@ def sgd_state(model, args, steps_per_epoch):
 def cnnrnn_train_phase(dev):
     """The 0042 CNN-RNN's train step at its published configuration:
     (64, 30, 4096) features on the device, bi-GRU 128 in bf16, SGD; 3
-    warm-up and 5 timed steps, then the LSTM cell (10 timed). Gates:
+    warm-up and 3 timed steps, then the LSTM cell (10 timed). Gates:
     finite losses, a repeated batch learnt, the first step on the card
     against the CPU in f32 (loss, gradients), and no dense-layer or GRU
     kernel launched in a step."""
@@ -2909,21 +2934,47 @@ def gru_work(T, B, H, lengths):
 def gru_runs(gru, H, B):
     """(key, variant, cluster) of every GRU kernel configuration that takes
     (H, B): the barrier kernel where it fits, the async one at every
-    cluster size whose plan exists."""
+    cluster size whose plan exists, the general one wherever its plan
+    exists (every H up to 1023)."""
     runs = [("barrier", "barrier", None)] if gru.barrier_fits(H, B) else []
-    return runs + [(f"async{c}", "async", c) for c in gru.ASYNC_CLUSTERS
-                   if gru.gru_plan(H, B, c) is not None]
+    runs += [(f"async{c}", "async", c) for c in gru.ASYNC_CLUSTERS
+             if gru.gru_plan(H, B, c) is not None]
+    if gru.general_plan(H, B) is not None:
+        runs.append(("general", "general", None))
+    return runs
+
+
+def gru_routed(gru, T, B, H):
+    """(key of the routed configuration, its cluster size, the floats each
+    CTA sends a peer per step) at (T, B, H)."""
+    routed = gru.gru_route(T, B, H)
+    if routed == "async":
+        plan = gru.gru_plan(H, B)
+        return f"async{plan.cluster}", plan.cluster, plan.rows * plan.units
+    plan = gru.general_plan(H, B)
+    return "general", plan.cluster, -(-plan.rows * plan.units // 4) * 4
+
+
+def l2_read_gbps():
+    """Read rate of the whole card from L2 in GB/s: the device time of one
+    sum over 16 MB that stays in the 50 MB L2 between calls (a host clock
+    around it would time the launch)."""
+    x = torch.ones(4 * 1024 * 1024, device="cuda")
+    ms, _ = kernel_device(lambda: x.sum(), "reduce")
+    return x.numel() * 4 / ms / 1e6
 
 
 def gru_phase(dev):
-    """Both GRU kernels against their plain version at every GRU_CASES
-    shape, with their times beside the port's whole layer and cuDNN's
-    nn.GRU over the same full-length layer from FEAT_DIM features. Returns
-    the worst error of each variant and the per-case rows."""
+    """Every GRU kernel against its plain version at every GRU_CASES
+    shape (two launches bit for bit), with their times beside the port's
+    whole layer and cuDNN's nn.GRU over the same full-length layer from
+    FEAT_DIM features. Returns the worst error of each variant and the
+    per-case rows."""
     from tennis_torch.ops import gru
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     barrier_us = cluster_round_trip_us()
+    l2_gbps = l2_read_gbps()
     rows, worst = {}, dict.fromkeys(gru.VARIANTS, 0.0)
     for name, T, B, H, lengths in GRU_CASES:
         def rand(*shape, std=1.0):
@@ -2936,9 +2987,7 @@ def gru_phase(dev):
         vl = torch.tensor(lengths, dtype=torch.int32, device=dev)
         full = torch.full((B,), T, dtype=torch.int32, device=dev)
         gx = torch.matmul(x, wx) + bx
-        routed = gru.gru_route(T, B, H)
-        plan = gru.gru_plan(H, B)
-        routed_key = f"async{plan.cluster}" if routed == "async" else routed
+        routed_key, cluster, floats = gru_routed(gru, T, B, H)
         t_live = max(min(max(n, 0), T) for n in lengths)
         by_key, ok = {}, True
         with torch.inference_mode():
@@ -2948,12 +2997,14 @@ def gru_phase(dev):
                     return gru.gru_recurrence(gx, h0, wh, bh, vl, variant, c)
 
                 ys, h = call()
+                again = call()
                 torch.cuda.synchronize()
                 err = max((ys - ys_ref).abs().max().item(),
                           (h - h_ref).abs().max().item())
                 finite = bool(torch.isfinite(ys).all() and torch.isfinite(h).all())
                 frozen = all(not ys[n:, b].any() for b, n in enumerate(lengths))
-                v_ok = finite and frozen and err <= GRU_TOL
+                same = torch.equal(ys, again[0]) and torch.equal(h, again[1])
+                v_ok = finite and frozen and same and err <= GRU_TOL
                 ok = ok and v_ok
                 worst[variant] = max(worst[variant], err)
                 device_ms = kernel_device(call, GRU_KERNELS[variant],
@@ -2962,8 +3013,9 @@ def gru_phase(dev):
                 # the fallback's clock beside the profiler's, each run
                 event_ms = event_device(call, (GRU_KERNELS[variant],), 1)[0]
                 by_key[key] = {"max_abs_err": err, "finite": finite,
-                               "zero_past_length": frozen, "ok": v_ok,
-                               "ms": time_ms(call, reps=20),
+                               "zero_past_length": frozen,
+                               "bitwise_repeatable": same, "ok": v_ok,
+                               "ms": time_ms(call, reps=10, rounds=3),
                                "device_ms": device_ms,
                                "event_device_ms": event_ms, "steps": steps,
                                "us_per_step": device_ms / max(steps, 1) * 1e3}
@@ -2971,7 +3023,8 @@ def gru_phase(dev):
                 lambda: gru.gru_recurrence_reference(gx, h0, wh, bh, vl),
                 reps=1, rounds=3)
             layer_ms = time_ms(
-                lambda: gru.gru_sequence(x, h0, wx, wh, bx, bh, full), reps=20)
+                lambda: gru.gru_sequence(x, h0, wx, wh, bx, bh, full), reps=10,
+                rounds=3)
             lib = torch.nn.GRU(FEAT_DIM, H).to(dev)
             for p, v in ((lib.weight_ih_l0, wx.t()), (lib.weight_hh_l0, wh.t()),
                          (lib.bias_ih_l0, bx), (lib.bias_hh_l0, bh)):
@@ -2979,31 +3032,123 @@ def gru_phase(dev):
             ys_lib, _ = lib(x, h0[None])
             ys_layer, _ = gru.gru_sequence(x, h0, wx, wh, bx, bh, full)
             lib_err = (ys_lib - ys_layer).abs().max().item()
-            library_ms = time_ms(lambda: lib(x, h0[None]), reps=20)
-        exchange_us = exchange_round_trip_us(plan.cluster, plan.rows * plan.units)
+            library_ms = time_ms(lambda: lib(x, h0[None]), reps=10, rounds=3)
+        exchange_us = exchange_round_trip_us(cluster, floats)
         flops, nbytes = gru_work(T, B, H, lengths)
         t_ops = flops / PEAK_F32_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         fastest = min(by_key, key=lambda k: by_key[k]["device_ms"])
+        general = gru.general_plan(H, B)
+        # the general kernel's weights read again each live step: its
+        # streamed rows of every product thread, over one SM's share of
+        # the card's L2 read rate
+        stream_bytes = 4 * 3 * general.stream_rows * general.units \
+            * general.segments
         row = {"ms": by_key[routed_key]["ms"],
                "device_ms": by_key[routed_key]["device_ms"],
                "plain_ms": plain_ms, "layer_ms": layer_ms,
                "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "serial_floor_ms": t_live * exchange_us / 1e3,
-               "barrier_serial_floor_ms": T * barrier_us / 1e3}
+               "barrier_serial_floor_ms": T * barrier_us / 1e3,
+               "general_stream_floor_ms": t_live * stream_bytes
+               / (l2_gbps * 1e9 / torch.cuda.get_device_properties(
+                   0).multi_processor_count) * 1e3}
         log("gru_kernel", case=name, T=T, batch=B, hidden=H, lengths=lengths,
             live_steps=t_live, tol=GRU_TOL, routed=routed_key, fastest=fastest,
             routed_over_fastest=by_key[routed_key]["device_ms"]
             / by_key[fastest]["device_ms"], variants=by_key,
-            plan=plan._asdict(), gflop=flops / 1e9, mbytes=nbytes / 1e6,
-            cluster_round_trip_us=barrier_us, exchange_round_trip_us=exchange_us,
+            general_over_routed=by_key["general"]["device_ms"]
+            / by_key[routed_key]["device_ms"],
+            plan=(gru.gru_plan(H, B) or general)._asdict(),
+            general_plan=general._asdict(), gflop=flops / 1e9,
+            mbytes=nbytes / 1e6, cluster_round_trip_us=barrier_us,
+            exchange_round_trip_us=exchange_us, l2_read_gbps=l2_gbps,
+            general_stream_bytes_per_step=stream_bytes,
             library_vs_layer_full_length_err=lib_err, ok=ok, **row)
         if not ok:
             raise SystemExit(f"a gru_recurrence kernel disagrees with its plain "
                              f"version at {name}")
         rows[name] = {**row, "variants": by_key}
     return worst, rows
+
+
+def decode_against_plain(dev, hidden, src, vl, rng):
+    """One 0102-shaped decode (CAPTION_ARGV at --num_hidden ``hidden``,
+    seeded random weights) through ``BeamSearchTranslator.translate`` as
+    the drivers and /caption call it, the GRU counts set to 0 just before
+    and read just after, then the same decode through the plain
+    recurrence. Returns a dict of both results, the launches by variant,
+    the plain-routed layers and the decode's ms."""
+    from tennis_torch.bridge import load_flax, to_flax
+    from tennis_torch.ops import gru
+    from tennis_torch.train_gnmt import build_model, parse_args
+    from tennis_torch.translation import BeamSearchTranslator
+
+    vocab = caption_vocab()
+    args = parse_args(CAPTION_ARGV + [f"--num_hidden={hidden}"])
+    model = build_model(args, len(vocab), FEAT_DIM)
+    load_flax(model, random_flax_tree(to_flax(model), rng))
+    model.to(dev).eval()
+    translator = BeamSearchTranslator(
+        model, vocab[vocab.bos_token], vocab[vocab.eos_token],
+        args.beam_size, args.lp_alpha, args.lp_k, args.tgt_max_len + 20)
+    reset_kernel_counts()
+    gru.gru_recurrence.plain_routed = 0
+    t0 = time.perf_counter()
+    samples, scores, lengths = translator.translate(src, vl)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    by_variant = dict(gru.gru_recurrence.variant_launches)
+    plain_routed = gru.gru_recurrence.plain_routed
+    with torch.inference_mode():
+        want = translator.build_decoder(CAPTION_BATCH)(
+            torch.from_numpy(src).to(dev), torch.from_numpy(vl).to(dev))
+    want = [t.cpu().numpy() for t in want]
+    return {"samples": samples, "scores": scores, "lengths": lengths,
+            "plain": want, "launches": by_variant,
+            "plain_routed": plain_routed, "decode_ms": decode_ms,
+            "samples_equal_plain_decode": np.array_equal(samples, want[0]),
+            "max_abs_score_vs_plain": float(np.abs(scores - want[1]).max())}
+
+
+def wide_decode_phase(dev):
+    """The 0102 captioner's beam decode at widths that only the general GRU
+    kernel takes: --num_hidden 640 and 300, batch 4 over 128 frames of
+    seeded features at the /caption lengths (``decode_against_plain``).
+    Gates: the route names the general kernel, 3 launches of it a decode,
+    no plain-routed layer, and the samples of the plain decode exactly.
+    Returns the GRU launches by variant."""
+    from tennis_torch.ops import gru
+
+    rng = np.random.default_rng(SEED + 18)
+    src = rng.standard_normal((CAPTION_BATCH, SRC_MAX_LEN, FEAT_DIM)) \
+        .astype(np.float32)
+    vl = np.array(CAPTION_LENGTHS, np.int32)
+    launches, ok = dict.fromkeys(gru.VARIANTS, 0), True
+    for hidden in WIDE_HIDDEN:
+        route = gru.gru_decode_route(SRC_MAX_LEN, CAPTION_BATCH, hidden)
+        d = decode_against_plain(dev, hidden, src, vl, rng)
+        by_variant = d["launches"]
+        for v in launches:
+            launches[v] += by_variant[v]
+        d_ok = (route == "general" and by_variant["general"] == 3
+                and sum(by_variant.values()) == 3 and d["plain_routed"] == 0
+                and d["samples_equal_plain_decode"]
+                and bool(np.isfinite(d["scores"]).all()))
+        ok = ok and d_ok
+        log("wide_decode", num_hidden=hidden, route=route,
+            gru_launches_by_variant=by_variant,
+            plain_routed=d["plain_routed"],
+            samples_equal_plain_decode=d["samples_equal_plain_decode"],
+            max_abs_score_vs_plain=d["max_abs_score_vs_plain"],
+            lengths_equal_plain_decode=bool(np.array_equal(
+                d["lengths"], d["plain"][2])),
+            decode_ms=d["decode_ms"], ok=d_ok)
+    if not ok:
+        raise SystemExit("a decode at a width only the general GRU kernel "
+                         "takes failed its gates")
+    return launches
 
 
 @contextlib.contextmanager
@@ -3860,7 +4005,7 @@ def no_kernel_launched(by_name=None):
 def resnet_train_phase(dev, frames):
     """The drivers' default model, ``FrameModel(resnet18_v2, 11)``, at
     512^2 and batch 64 over the 256 seeded frames, through the driver's
-    train step (device augment, bf16, SGD): 3 warm-up and 5 timed steps,
+    train step (device augment, bf16, SGD): 3 warm-up and 3 timed steps,
     2 profiled; then ``resnet50_v2`` for RESNET50_STEPS steps. Gates: finite
     losses, 30 steps on one batch lower the loss, the first bf16 step
     against f32 at batch 16, no kernel launched."""
@@ -4944,8 +5089,6 @@ def ddp_phase(dev):
     from tennis_torch.parallel import distributed as D
     from tennis_torch.parallel.train_step import create_train_state, \
         make_train_step, sgd_with_schedule
-    from tennis_torch.train_gnmt import build_model, parse_args
-    from tennis_torch.translation import BeamSearchTranslator
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(SEED + 16)
@@ -5068,45 +5211,27 @@ def ddp_phase(dev):
         launches = dict(dense)
 
         # a 0102-shaped decode past the GRU kernels' H, and at 256
-        vocab = caption_vocab()
         src = rng.standard_normal((CAPTION_BATCH, SRC_MAX_LEN, FEAT_DIM)) \
             .astype(np.float32)
         vl = np.array([128, 100, 37, 1], np.int32)
         decode_ok, gru_launches = True, dict.fromkeys(gru.VARIANTS, 0)
         for hidden in DDP_HIDDEN:
-            args = parse_args(CAPTION_ARGV + [f"--num_hidden={hidden}"])
-            model = build_model(args, len(vocab), FEAT_DIM)
-            load_flax(model, random_flax_tree(to_flax(model), rng))
-            model.to(dev).eval()
-            translator = BeamSearchTranslator(
-                model, vocab[vocab.bos_token], vocab[vocab.eos_token],
-                args.beam_size, args.lp_alpha, args.lp_k,
-                args.tgt_max_len + 20)
-            reset_kernel_counts()
-            gru.gru_recurrence.plain_routed = 0
-            t0 = time.perf_counter()
-            samples, scores, lengths = translator.translate(src, vl)
-            decode_ms = (time.perf_counter() - t0) * 1e3
-            _, n_gru = kernel_counts()
-            routed = gru.gru_recurrence.plain_routed
+            d = decode_against_plain(dev, hidden, src, vl, rng)
+            n_gru, routed = sum(d["launches"].values()), d["plain_routed"]
             for v in gru.VARIANTS:
-                gru_launches[v] += gru.gru_recurrence.variant_launches[v]
-            with torch.inference_mode():
-                want = translator.build_decoder(CAPTION_BATCH)(
-                    torch.from_numpy(src).to(dev),
-                    torch.from_numpy(vl).to(dev))
-            want = [t.cpu().numpy() for t in want]
-            same = np.array_equal(samples, want[0])
-            top_same = np.array_equal(samples[:, 0], want[0][:, 0])
-            ok = (n_gru == 0 and routed == 3 and same) if hidden > 512 \
+                gru_launches[v] += d["launches"][v]
+            same = d["samples_equal_plain_decode"]
+            plain = gru.gru_decode_route(SRC_MAX_LEN, CAPTION_BATCH,
+                                         hidden) == "plain"
+            ok = (n_gru == 0 and routed == 3 and same) if plain \
                 else (n_gru == 3 and routed == 0)
             decode_ok = decode_ok and ok
             log("ddp_decode", num_hidden=hidden, gru_launches=n_gru,
                 plain_routed=routed, samples_equal_plain_decode=same,
-                top_beams_equal_plain_decode=top_same,
-                max_abs_score_vs_plain=float(np.abs(scores - want[1]).max()),
-                decode_ms=decode_ms, ok=ok)
-            del model, translator
+                top_beams_equal_plain_decode=bool(np.array_equal(
+                    d["samples"][:, 0], d["plain"][0][:, 0])),
+                max_abs_score_vs_plain=d["max_abs_score_vs_plain"],
+                decode_ms=d["decode_ms"], ok=ok)
     finally:
         D.shutdown()
     log("ddp_phase", wall_s=time.perf_counter() - t_phase,
@@ -5447,15 +5572,22 @@ def dense_entry(name, variant, stack, launches, max_abs):
 
 
 def gru_entry(name, variant, rows, launches, max_abs):
-    """The kernels-line entry of one GRU variant at the 0102 serving shape;
-    the async one at the cluster size its plan takes there."""
+    """The kernels-line entry of one GRU variant: the barrier and async
+    kernels at the 0102 serving shape (the async one at the cluster size
+    its plan takes there), the general one at the 0102 encoder's shape at
+    --num_hidden 640 (the full-width decode of [wide_decode])."""
     from tennis_torch.ops import gru
 
-    _, T, B, H, lengths = GRU_CASES[0]
-    row = rows["serve_0102"]
-    key = "barrier" if variant == "barrier" else \
-        f"async{gru.gru_plan(H, B).cluster}"
+    case = "wide_h640" if variant == "general" else "serve_0102"
+    _, T, B, H, lengths = next(c for c in GRU_CASES if c[0] == case)
+    row = rows[case]
+    key = f"async{gru.gru_plan(H, B).cluster}" if variant == "async" \
+        else variant
     mine = row["variants"][key]
+    floor = {"async": row["serial_floor_ms"],
+             "barrier": row["barrier_serial_floor_ms"],
+             "general": max(row["serial_floor_ms"],
+                            row["general_stream_floor_ms"])}[variant]
     return {
         "name": name, "route": "cuda", "source": f"tennis_torch/csrc/{name}.cu",
         "replaces": "tennis_tpu/ops/pallas/gru.py:41",
@@ -5464,15 +5596,18 @@ def gru_entry(name, variant, rows, launches, max_abs):
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         "layer_ms": row["layer_ms"], "us_per_step": mine["us_per_step"],
-        "serial_floor_ms": row["serial_floor_ms"] if variant == "async"
-        else row["barrier_serial_floor_ms"],
+        "serial_floor_ms": floor,
         "work": f"one GRU recurrence of the 0102 encoder: T {T}, batch {B}, "
                 f"H {H}, lengths {lengths} ({key}); launches count the "
-                f"/caption batches served, the per-epoch and evaluate_gnmt "
-                f"decodes of [caption_driver] and the --pallas_gru exported "
-                f"program's batches in [export_caption]; library_ms (cuDNN "
-                f"nn.GRU) and layer_ms (the port) cover the whole layer from "
-                f"{FEAT_DIM} features at full length",
+                + ("decodes at --num_hidden 640 and 300 of [wide_decode]"
+                   if variant == "general" else
+                   "/caption batches served, the per-epoch and "
+                   "evaluate_gnmt decodes of [caption_driver] and the "
+                   "--pallas_gru exported program's batches in "
+                   "[export_caption]")
+                + f"; library_ms (cuDNN nn.GRU) and layer_ms (the port) "
+                f"cover the whole layer from {FEAT_DIM} features at full "
+                f"length",
     }
 
 
@@ -5521,6 +5656,8 @@ def main() -> int:
     del model
     gru_abs, gru_rows = timed(gru_phase, torch.device("cuda"))
     gru_launches = timed(caption_phase, torch.device("cuda"))
+    counts = timed(wide_decode_phase, torch.device("cuda"))
+    gru_launches = {v: gru_launches[v] + counts[v] for v in gru_launches}
     vocab, splits, tree = timed(caption_train_inputs)
     timed(caption_train_phase, torch.device("cuda"), vocab, splits, tree)
     counts = timed(caption_driver_phase, torch.device("cuda"), vocab, splits,
@@ -5580,7 +5717,9 @@ def main() -> int:
                         f32_counts["f32"] + f32_pretrained),
         gru_entry("gru_recurrence", "barrier", gru_rows, gru_launches, gru_abs),
         gru_entry("gru_recurrence_async", "async", gru_rows, gru_launches,
-                  gru_abs)]}))
+                  gru_abs),
+        gru_entry("gru_recurrence_general", "general", gru_rows,
+                  gru_launches, gru_abs)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,12 +9,18 @@ recurrence, which one launch runs for all T steps. Two kernels compute it:
   per chunk of up to 8 batch rows, each thread keeping its share of Wh in
   registers (the rest in shared memory), the new hidden state sent to every
   CTA with ``st.async`` and awaited on an mbarrier; no cluster barrier
-  inside the loop. It takes H up to 512 (``gru_plan``).
+  inside the loop. It takes H up to 512, multiples of 8 or 16 with a
+  partition the source takes (``gru_plan``).
+- ``"general"``, ``csrc/gru_recurrence_general.cu``: every H from 1 to
+  1023 (``general_plan``): a cluster of min(16, H) CTAs owning ragged runs
+  of units, the async kernel's exchange, Wh in registers and shared memory
+  as far as they hold it and the rest streamed from L2 every step.
 - ``"barrier"``, ``csrc/gru_recurrence.cu``: a cluster of 8 CTAs, Wh in
   shared memory, one cluster barrier a step; H up to 368. Kept for the A/B.
 
-``gru_recurrence`` routes each (T, B, H) to the variant the card measured
-fastest (``gru_route``). Beside the kernels sits their plain PyTorch
+``gru_recurrence`` routes each (T, B, H) to the async kernel where it takes
+the shape (the card measured it fastest there) and to the general one
+elsewhere (``gru_route``). Beside the kernels sits their plain PyTorch
 version, ``gru_recurrence_reference``. The launch is the ``torch.library``
 custom op ``tennis_torch::gru_recurrence`` (:func:`gru_recurrence_op`),
 whose CUDA implementation launches a kernel or raises and whose CPU
@@ -31,8 +37,8 @@ from typing import NamedTuple
 import torch
 
 SMEM_LIMIT = 232448    # 227 KiB: the most dynamic shared memory a CTA can use
-MAX_HIDDEN = 512       # the widest H any variant takes
-VARIANTS = ("barrier", "async")
+MAX_HIDDEN = 512       # the widest H the async kernel takes (its kMaxH)
+VARIANTS = ("barrier", "async", "general")
 
 # "barrier" (csrc/gru_recurrence.cu)
 CLUSTER = 8            # CTAs per cluster (csrc kCluster)
@@ -151,17 +157,120 @@ def gru_partition(H: int, plan: GruPlan):
             for u in range(U) for g in range(3)]
 
 
+# "general" (csrc/gru_recurrence_general.cu), mirrored: the source constants
+GENERAL_MAX_HIDDEN = 1023  # kMaxH: past it Wh alone fills the JAX kernel's budget
+GENERAL_MAX_CLUSTER = 16   # kMaxCluster
+GENERAL_MAX_THREADS = 256  # kMaxThreads
+GENERAL_MAX_ROWS = 8       # kMaxRows
+CHUNK_ROWS = 8             # kChunkRows: rows of a column in one streamed chunk
+RING_SLOTS = 2             # kRingSlots
+
+
+class GeneralPlan(NamedTuple):
+    """The general kernel's partition of one (H, B): ``cluster`` = min(16,
+    H) CTAs per chunk of ``rows`` batch rows, CTA k owning a run of
+    floor(H / C) or ceil(H / C) = ``units`` units; ``threads`` threads, of
+    which the first ``units`` x ``segments`` are product threads: thread
+    (u, s) sums rows [s L, (s + 1) L) (L = ``seg_rows``) of the r, z and n
+    columns of unit u, ``reg_rows`` of them from registers, ``smem_rows``
+    from shared memory, the last ``stream_rows`` streamed from L2 every
+    step in chunks of :data:`CHUNK_ROWS`. ``smem_bytes`` is the CTA's
+    dynamic shared memory."""
+    cluster: int
+    units: int
+    segments: int
+    rows: int
+    threads: int
+    seg_rows: int
+    reg_rows: int
+    smem_rows: int
+    stream_rows: int
+    smem_bytes: int
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _general_smem_floats(H, C, S, L, R, LR):
+    """The source's ``make_plan``: dynamic shared memory in floats."""
+    UM = _ceil(H, C)
+    NP = UM * S
+    LT = L - REG_ROWS - LR
+    return (2 * R * S * L + _round4(S * R * 3 * UM) + R * _round4(UM)
+            + 3 * LR * NP + (RING_SLOTS * 3 * CHUNK_ROWS * NP if LT else 0))
+
+
+@functools.lru_cache(maxsize=4096)
+def _general_plan(H: int, B: int) -> GeneralPlan | None:
+    if H < 1 or H > GENERAL_MAX_HIDDEN:
+        return None
+    C = min(GENERAL_MAX_CLUSTER, H)
+    UM = _ceil(H, C)
+    # segments: as many as keep a segment's rows past the registers' kRegL
+    S = max(1, min(GENERAL_MAX_THREADS // UM, H // REG_ROWS))
+    L = max(REG_ROWS, _ceil(_ceil(H, S), CHUNK_ROWS) * CHUNK_ROWS)
+    # rows per cluster: a power of two (a template argument) with a gate
+    # thread for every (row, unit) pair
+    R = min(1 << (min(B, GENERAL_MAX_ROWS) - 1).bit_length(),
+            1 << ((GENERAL_MAX_THREADS // UM).bit_length() - 1))
+    NP = UM * S
+    cap = (SMEM_LIMIT - STATIC_SMEM) // 4
+    LS = L - REG_ROWS
+    if _general_smem_floats(H, C, S, L, R, LS) <= cap:
+        LR = LS  # the whole slice resident
+    else:  # the ring streams what the rest of shared memory does not hold
+        free = cap - _general_smem_floats(H, C, S, L, R, 0)
+        LR = free // (3 * NP) // CHUNK_ROWS * CHUNK_ROWS
+        if LR < 0:
+            return None
+    threads = _ceil(max(NP, R * UM), 32) * 32
+    return GeneralPlan(C, UM, S, R, threads, L, REG_ROWS, LR, LS - LR,
+                       4 * _general_smem_floats(H, C, S, L, R, LR))
+
+
+def general_plan(H: int, B: int) -> GeneralPlan | None:
+    """The general kernel's partition at hidden size H and batch B, or None
+    where it takes none (H outside 1 to 1023)."""
+    return _general_plan(H, max(B, 1))
+
+
+def general_partition(H: int, plan: GeneralPlan):
+    """Who owns what in the general kernel, as the source computes it:
+    ``[(rank, first unit, units)]`` for every CTA, and for every CTA
+    ``rank`` and product thread (u, s) of a unit it owns
+    ``[(rank, u, s, first row, rows in registers, rows in shared memory,
+    rows streamed)]``, counting rows of Wh (below H) only."""
+    C, S, L = plan.cluster, plan.segments, plan.seg_rows
+    base, extra = divmod(H, C)
+    runs = [(k, k * base + min(k, extra), base + (k < extra)) for k in range(C)]
+    parts = []
+    for rank, _, U in runs:
+        for s in range(S):
+            for u in range(U):
+                k0 = s * L
+                spans = (plan.reg_rows, plan.smem_rows, plan.stream_rows)
+                counts, k = [], k0
+                for n in spans:
+                    counts.append(max(0, min(k + n, H) - k) if k < H else 0)
+                    k += n
+                parts.append((rank, u, s, k0, *counts))
+    return runs, parts
+
+
 def gru_fits_smem(T: int, B: int, H: int) -> bool:
-    """Whether a kernel takes hidden size H: up to 512 (the async kernel,
-    ``gru_plan``), or up to 368 for the barrier kernel. T does not count:
-    gates and outputs stream from device memory. B counts only up to the 8
-    rows one cluster holds; further rows go to further clusters."""
+    """Whether a kernel of the card takes hidden size H: every H from 1 to
+    1023 (the general kernel, ``general_plan``; the async kernel takes the
+    multiples of 8 or 16 up to 512 of them, ``gru_plan``). T does not
+    count: gates and outputs stream from device memory. B counts only up to
+    the rows one cluster holds; further rows go to further clusters."""
     del T
-    return gru_plan(H, B) is not None or barrier_fits(H, B)
+    return general_plan(H, B) is not None
 
 
 # Device ms measured by chip_smoke.py on an H100 80GB HBM3 at 700 W
-# (PERF.md): barrier / async at 16 CTAs / async at 8 CTAs.
+# (PERF.md): barrier / async at 16 CTAs / async at 8 CTAs; the general
+# kernel's own times at these and at wider or ragged H are in PERF.md.
 #   T 128, B 4, H 256 (the 0102 encoder):      0.637 / 0.183 / 0.189
 #   the same at /caption lengths 21/30/104/69: 0.630 / 0.150 / 0.156
 #   T 128, B 32, H 256:                        1.059 / 0.263 / 0.309
@@ -171,9 +280,10 @@ def gru_fits_smem(T: int, B: int, H: int) -> bool:
 def gru_route(T: int, B: int, H: int) -> str:
     """The variant ``gru_recurrence`` launches by default: the async kernel
     wherever it takes H (the faster at every shape measured, above), with
-    ``gru_plan``'s cluster size; else the barrier kernel."""
+    ``gru_plan``'s cluster size; else the general kernel, whose launch
+    raises past H 1023. The barrier kernel only where it is forced."""
     del T
-    return "async" if gru_plan(H, B) is not None else "barrier"
+    return "async" if gru_plan(H, B) is not None else "general"
 
 
 # the JAX package's budget for its kernel's gates, outputs and weights
@@ -193,10 +303,10 @@ def gru_decode_route(T: int, B: int, H: int) -> str:
     ``"plain"``, the layer's plain differentiable recurrence, only where
     no kernel of the card takes the shape (:func:`gru_fits_smem`) and the
     JAX package runs its scan too (:func:`reference_runs_kernel` fails);
-    else the variant :func:`gru_route` picks, which on the card launches
-    or raises (H 640 at the 0102 encoder's T 128, B 4, where the JAX
-    package runs its kernel and no card kernel takes H, raises). It reads
-    the shapes alone, before any launch."""
+    else the variant :func:`gru_route` picks, which on the card launches.
+    Every H from 1 to 1023 has a card kernel and the JAX package never runs
+    its kernel at H >= 1024, so "plain" means H >= 1024. It reads the
+    shapes alone, before any launch."""
     if not gru_fits_smem(T, B, H) and not reference_runs_kernel(T, B, H):
         return "plain"
     return gru_route(T, B, H)
@@ -260,12 +370,14 @@ def _check_kernel_args(gates_x, h0, wh, bh, valid_length):
 def _launcher(variant):
     from tennis_torch.ops._build import load_library
 
-    name = {"barrier": "gru_recurrence", "async": "gru_recurrence_async"}[variant]
+    name = {"barrier": "gru_recurrence", "async": "gru_recurrence_async",
+            "general": "gru_recurrence_general"}[variant]
     fn = getattr(load_library(name), f"{name}_launch")
     if fn.argtypes is None:
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        # ... T, B, H, then S, R (barrier) or C, S, R (async)
-        n_int = 5 if variant == "barrier" else 6
+        # ... T, B, H, then S, R (barrier), C, S, R (async) or C, S, L, R,
+        # LR (general)
+        n_int = {"barrier": 5, "async": 6, "general": 8}[variant]
         fn.argtypes = [p, ll, ll, p, p, ll, ll, p, p, p, ll, ll, p] + \
             [i] * n_int + [p]
         fn.restype = ctypes.c_int
@@ -283,8 +395,9 @@ def gru_recurrence_op(gates_x: torch.Tensor, h0: torch.Tensor,
     contiguous batch-major ``ys`` (B, T, H) and ``h_final`` (B, H), new
     tensors (an op's output may alias no input). ``variant`` is
     :func:`gru_route`'s, ``cluster`` the async kernel's cluster size (0:
-    :func:`gru_plan`'s). On the CPU it runs
-    :func:`gru_recurrence_reference`, whatever the variant."""
+    :func:`gru_plan`'s; the general kernel takes only its own, min(16,
+    H)). On the CPU it runs :func:`gru_recurrence_reference`, whatever the
+    variant."""
     ys, h_final = gru_recurrence_reference(gates_x, h0, wh, bh, valid_length)
     return ys.transpose(0, 1).contiguous(), h_final
 
@@ -302,8 +415,26 @@ def _gru_recurrence_cuda(gates_x, h0, wh, bh, valid_length, variant, cluster):
                 f"gru_recurrence async kernel: hidden size {H} is beyond its "
                 f"register and shared-memory budget (H up to {MAX_HIDDEN}, a "
                 f"multiple of the cluster size {cluster or ASYNC_CLUSTERS}); "
-                f"a wider H needs a kernel that streams Wh")
+                f"the general kernel takes every H up to {GENERAL_MAX_HIDDEN}")
         partition = (plan.cluster, plan.segments, plan.rows)
+    elif variant == "general":
+        plan = general_plan(H, B)
+        if plan is None:
+            raise ValueError(
+                f"gru_recurrence general kernel: hidden size {H} is beyond "
+                f"its register and shared-memory budget (H from 1 to "
+                f"{GENERAL_MAX_HIDDEN}; at H >= 1024 the JAX package runs "
+                f"its scan, and gru_decode_route the plain recurrence)")
+        if cluster not in (0, plan.cluster):
+            raise ValueError(f"gru_recurrence general kernel: H {H} takes "
+                             f"clusters of {plan.cluster}, not {cluster}")
+        if wh.stride(0) == 1 and (wh.stride(1) % 4 or wh.data_ptr() % 16):
+            # a transposed weight whose columns the kernel cannot copy 16
+            # bytes at a time: row-major, so a warp's copies read adjacent
+            # columns (the card measured 2x at H 737)
+            wh = wh.contiguous()
+        partition = (plan.cluster, plan.segments, plan.seg_rows, plan.rows,
+                     plan.smem_rows)
     else:
         if not barrier_fits(H, B):
             need = _smem_bytes(H, *_split(H, B)) if H % CLUSTER == 0 else None
@@ -345,12 +476,12 @@ def gru_recurrence(gates_x, h0, wh, bh, valid_length=None,
     """GRU recurrence over precomputed input gates (see
     :func:`gru_recurrence_reference` for the function), through
     :func:`gru_recurrence_op`: CUDA tensors go through the kernel that
-    ``variant`` names (``"async"`` or ``"barrier"``; by default
-    :func:`gru_route`'s choice, resolved here from the static shapes), the
-    async one with ``cluster`` CTAs per chunk of rows (by default
-    :func:`gru_plan`'s); CPU tensors through the plain version, whatever
-    the variant. On the card a gradient may not be required: the kernels
-    are forward-only.
+    ``variant`` names (``"async"``, ``"general"`` or ``"barrier"``; by
+    default :func:`gru_route`'s choice, resolved here from the static
+    shapes), the async one with ``cluster`` CTAs per chunk of rows (by
+    default :func:`gru_plan`'s); CPU tensors through the plain version,
+    whatever the variant. On the card a gradient may not be required: the
+    kernels are forward-only.
 
     Returns (ys (T, B, H), h_final (B, H)) f32; ``ys`` is a (T, B, H) view
     of a batch-major (B, T, H) buffer, so ``ys.transpose(0, 1)`` is

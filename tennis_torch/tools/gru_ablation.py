@@ -1,18 +1,22 @@
 """Ablations of the GRU recurrence kernels on one card.
 
 Builds ``csrc/gru_recurrence.cu`` (or, with ``--kernel async``,
-``csrc/gru_recurrence_async.cu``) as it is and once per ablation with one
+``csrc/gru_recurrence_async.cu``; with ``--kernel general``,
+``csrc/gru_recurrence_general.cu``) as it is and once per ablation with one
 text edit (each named in ``ABLATIONS``), then times every build by device
-time (torch.profiler) at the 0102 serving shape (T 128, batch 4, H 256,
-lengths 128/100/37/1) and at the evaluate batch (32 rows), in two profiler
-sessions, the second in the reverse order, and prints one JSON line per
-shape; ``--cluster 8|16`` sets the async kernel's cluster size (by default
-``gru_plan``'s). An ablation that skips work computes a wrong recurrence:
-its time says what that work costs on the kernel's critical path, and
-nothing else.
+time (torch.profiler) at the kernel's cases, in two profiler sessions, the
+second in the reverse order, and prints one JSON line per shape: for the
+barrier and async kernels the 0102 serving shape (T 128, batch 4, H 256,
+lengths 128/100/37/1) and the evaluate batch (32 rows); for the general
+one the 0102 encoder's shape at H 640 (Wh partly streamed) and 300 (ragged
+runs of units, Wh resident), at the ``/caption`` lengths. ``--cluster
+8|16`` sets the async kernel's cluster size (by default ``gru_plan``'s).
+An ablation that skips work computes a wrong recurrence: its time says
+what that work costs on the kernel's critical path, and nothing else.
 
-Run from the root of a checkout:
-``python -m tennis_torch.tools.gru_ablation [--kernel async [--cluster 16]]``.
+Run from the root of a checkout: ``python -m
+tennis_torch.tools.gru_ablation [--kernel async [--cluster 16] | --kernel
+general]``.
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ import threading
 
 import torch
 
-SOURCES = {"barrier": "gru_recurrence", "async": "gru_recurrence_async"}
+SOURCES = {"barrier": "gru_recurrence", "async": "gru_recurrence_async",
+           "general": "gru_recurrence_general"}
 # name -> [(text in the source, replacement)]
 ABLATIONS = {"barrier": {
     "as_is": [],
@@ -93,10 +98,41 @@ ABLATIONS = {"barrier": {
     # every row runs all T steps (no dead-step cut)
     "all_steps": [("  for (int b = 0; b < nb; ++b) t_end = max(t_end, min(max(a.vl[row0 + b], 0), a.T));",
                    "  t_end = a.T;")],
+}, "general": {
+    "as_is": [],
+    # every CTA returns at once: launch and cluster scheduling alone
+    "launch_only": [("  const int rank = static_cast<int>(cluster_rank());\n"
+                     "  const int H = a.H,",
+                     "  const int rank = static_cast<int>(cluster_rank());\n"
+                     "  if (a.T >= 0) return;\n  const int H = a.H,")],
+    # the streamed rows skipped: registers and shared memory alone
+    "no_stream": [("      for (int c = 0; c < n_chunks; ++c, ++used) {",
+                   "      for (int c = 0; c < 0; ++c, ++used) {")],
+    # 4-byte copies only, wherever Wh's layout allows 16-byte ones
+    "no_vec_copy": [("  const bool vec = a.wh_sk == 1",
+                     "  const bool vec = false && a.wh_sk == 1")],
+    # no dot product: the gate math on zero partials (the ring still runs)
+    "no_product": [("      for (int i = 0; i < kRegL; i += 4) {",
+                    "      for (int i = 0; i < 0; i += 4) {"),
+                   ("      for (int i = 0; i < LR; i += 4) {",
+                    "      for (int i = 0; i < 0; i += 4) {")],
+    # the gate threads load no gates
+    "no_gx_load": [("  if (gate && t_end > 0) {", "  if (false) {"),
+                   ("      if (send) {  // in flight across the exchange",
+                    "      if (false) {  // in flight across the exchange")],
+    # the gate threads read the first segment's partials only
+    "no_reduce": [("      for (int q = 0; q < S; ++q) {", "      for (int q = 0; q < 1; ++q) {")],
+    # every row runs all T steps (no dead-step cut)
+    "all_steps": [("  for (int b = 0; b < nb; ++b) t_end = max(t_end, min(max(a.vl[row0 + b], 0), a.T));",
+                   "  t_end = a.T;")],
 }}
 # (name, T, batch, H, valid lengths)
-CASES = [("serve_0102", 128, 4, 256, [128, 100, 37, 1]),
-         ("evaluate_b32", 128, 32, 256, [128 * (31 - i) // 31 for i in range(32)])]
+CASES = {"barrier": [("serve_0102", 128, 4, 256, [128, 100, 37, 1]),
+                     ("evaluate_b32", 128, 32, 256,
+                      [128 * (31 - i) // 31 for i in range(32)])]}
+CASES["async"] = CASES["barrier"]
+CASES["general"] = [("wide_h640", 128, 4, 640, [21, 30, 104, 69]),
+                    ("ragged_h300", 128, 4, 300, [21, 30, 104, 69])]
 
 
 def build_all(kernel, out_dir):
@@ -187,14 +223,14 @@ def main(argv=None) -> int:
         fn = getattr(ctypes.CDLL(lib), f"{SOURCES[kernel]}_launch")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fn.argtypes = [p, ll, ll, p, p, ll, ll, p, p, p, ll, ll, p] + \
-            [i] * (5 if kernel == "barrier" else 6) + [p]
+            [i] * {"barrier": 5, "async": 6, "general": 8}[kernel] + [p]
         fn.restype = ctypes.c_int
         launch[name] = fn
         print(json.dumps({"build": name, "ptxas": ptxas}), flush=True)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    for case, T, B, H, lengths in CASES:
+    for case, T, B, H, lengths in CASES[kernel]:
         def rand(*shape, std=1.0):
             return torch.empty(shape, device=dev).normal_(0, std, generator=gen)
 
@@ -205,6 +241,10 @@ def main(argv=None) -> int:
         hfin = torch.empty((B, H), device=dev)
         if kernel == "barrier":
             partition = gru._split(H, B)
+        elif kernel == "general":
+            plan = gru.general_plan(H, B)
+            partition = (plan.cluster, plan.segments, plan.seg_rows,
+                         plan.rows, plan.smem_rows)
         else:
             plan = gru.gru_plan(H, B, opts.cluster)
             partition = (plan.cluster, plan.segments, plan.rows)

@@ -1,7 +1,7 @@
 """The port on a CUDA card: the three dense-layer kernels (tile, persistent
 and cluster) against their plain version at small and ragged shapes, the
 wrapper's refusals and choice of kernel, DenseNet forwards through the
-kernels (DenseNet161's widths through ``dense_layer_convs``), the two GRU
+kernels (DenseNet161's widths through ``dense_layer_convs``), the three GRU
 kernels, the paths around them (FlowNet-S through cuDNN; ``predict``
 over in-memory frames) and the ``torch.export`` programs that carry both
 kernels as custom ops. Marked ``cuda``; each test skips without a card. On a
@@ -291,8 +291,8 @@ def test_gru_kernel_refusals(dev):
     gx, h0, wh, bh, vl = args
     with pytest.raises(TypeError):
         gru.gru_recurrence(gx.double(), h0, wh, bh, vl)
-    big, _ = _gru_inputs(dev, 2, 2, 520, [2, 2])
-    assert not gru.gru_fits_smem(2, 2, 520)
+    big, _ = _gru_inputs(dev, 2, 2, 1024, [2, 2])
+    assert not gru.gru_fits_smem(2, 2, 1024)
     with pytest.raises(ValueError, match="shared-memory budget"):
         gru.gru_recurrence(*big)
     with pytest.raises(RuntimeError, match="forward-only"):
@@ -411,6 +411,96 @@ def test_rnn_layer_h512_takes_the_kernel(dev):
         h, out = layer(x, vl)
         assert gru.gru_recurrence.variant_launches == {
             **before, "async": before["async"] + 1}
+    h_ref, out_ref = layer.cpu()(x.cpu(), vl.cpu())
+    torch.testing.assert_close(out.cpu(), out_ref, rtol=0, atol=GRU_TOL)
+    torch.testing.assert_close(h.cpu(), h_ref, rtol=0, atol=GRU_TOL)
+
+
+# (T, B, H, lengths): the widths only the general kernel takes at the
+# /caption lengths (chip_smoke.py's new GRU_CASES), H below 16 (a cluster of
+# H CTAs), one unit, B past 8 (more clusters, a ragged last chunk of rows),
+# lengths of 0, and the widest H
+GENERAL_CASES = [
+    (128, 4, 300, [21, 30, 104, 69]), (128, 4, 504, [21, 30, 104, 69]),
+    (128, 4, 640, [21, 30, 104, 69]), (128, 4, 737, [21, 30, 104, 69]),
+    (128, 32, 185, [21, 30, 104, 69] * 8), (1, 4, 1020, [1, 1, 1, 1]),
+    (5, 3, 5, [5, 0, 2]), (7, 11, 13, [i % 8 for i in range(11)]),
+    (3, 2, 1, [3, 0]), (6, 37, 100, [i % 7 for i in range(37)]),
+    (16, 9, 1023, [16, 0, 3, 16, 9, 1, 16, 2, 5]), (4, 4, 17, [0, 0, 0, 0])]
+
+
+@pytest.mark.parametrize("layout", ["row_major", "transposed"])
+@pytest.mark.parametrize("T,B,H,lengths", GENERAL_CASES)
+def test_gru_general_matches_plain(dev, T, B, H, lengths, layout):
+    """The general kernel within 1e-4 of the plain version, two launches
+    bit for bit, zeros and a frozen carry past each length, with Wh
+    row-major and as the transposed (3H, H) weight RNNLayer passes."""
+    args, gru = _gru_inputs(dev, T, B, H, lengths, seed=H + B + T)
+    if layout == "transposed":
+        args = (args[0], args[1], args[2].t().contiguous().t(), *args[3:])
+    before = dict(gru.gru_recurrence.variant_launches)
+    ys, h = gru.gru_recurrence(*args, variant="general")
+    ys2, h2 = gru.gru_recurrence(*args, variant="general")
+    ys_ref, h_ref = gru.gru_recurrence_reference(*args)
+    torch.cuda.synchronize()
+    assert gru.gru_recurrence.variant_launches == {
+        **before, "general": before["general"] + 2}
+    assert torch.equal(ys, ys2) and torch.equal(h, h2)
+    torch.testing.assert_close(ys, ys_ref, rtol=0, atol=GRU_TOL)
+    torch.testing.assert_close(h, h_ref, rtol=0, atol=GRU_TOL)
+    for b, n in enumerate(lengths):
+        assert not ys[n:, b].any()
+        if n == 0:
+            torch.testing.assert_close(h[b], args[1][b], rtol=0, atol=0)
+
+
+def test_gru_general_plan_mirror_and_refusals(dev):
+    """The launcher's shared-memory budget equals general_plan's at every
+    H it takes, it refuses H 1024 and a cluster other than min(16, H), and
+    the wrapper raises before any launch."""
+    import ctypes
+
+    from tennis_torch.ops import gru
+    from tennis_torch.ops._build import load_library
+
+    smem = load_library("gru_recurrence_general").gru_recurrence_general_smem_bytes
+    smem.argtypes = [ctypes.c_int] * 6
+    smem.restype = ctypes.c_longlong
+    for H in [*range(1, 1024, 11), 1023]:
+        for B in (1, 4, 9, 32):
+            p = gru.general_plan(H, B)
+            assert smem(H, p.cluster, p.segments, p.seg_rows, p.rows,
+                        p.smem_rows) == p.smem_bytes
+    p = gru.general_plan(640, 4)
+    assert smem(1024, 16, 4, 256, 4, 40) == -1
+    assert smem(640, 8, p.segments, p.seg_rows, p.rows, p.smem_rows) == -1
+    assert smem(640, 16, p.segments, p.seg_rows, 3, p.smem_rows) == -1
+    assert smem(640, 16, p.segments, p.seg_rows, p.rows, 4) == -1
+    args, _ = _gru_inputs(dev, 4, 4, 1024, [4, 3, 2, 1])
+    small, _ = _gru_inputs(dev, 4, 4, 300, [4, 3, 2, 1])
+    before = dict(gru.gru_recurrence.variant_launches)
+    with pytest.raises(ValueError, match="budget"):
+        gru.gru_recurrence(*args, variant="general")
+    with pytest.raises(ValueError, match="clusters of 16"):
+        gru.gru_recurrence(*small, variant="general", cluster=8)
+    assert gru.gru_recurrence.variant_launches == before
+
+
+def test_rnn_layer_ragged_width_takes_the_general_kernel(dev):
+    """A GRU layer of 300 (the 0102 captioner at --num_hidden 300) runs on
+    the card through the general kernel inside the decode context."""
+    from tennis_torch.ops import gru
+    from tennis_torch.ops.rnn import RNNLayer, gru_decode
+
+    layer = RNNLayer("gru", 64, 300, generator=torch.Generator().manual_seed(0))
+    layer = layer.to(dev)
+    x = torch.randn(4, 20, 64, generator=torch.Generator().manual_seed(1)).to(dev)
+    vl = torch.tensor([20, 13, 5, 1], device=dev)
+    with torch.inference_mode(), gru_decode():
+        before = dict(gru.gru_recurrence.variant_launches)
+        h, out = layer(x, vl)
+        assert gru.gru_recurrence.variant_launches == {
+            **before, "general": before["general"] + 1}
     h_ref, out_ref = layer.cpu()(x.cpu(), vl.cpu())
     torch.testing.assert_close(out.cpu(), out_ref, rtol=0, atol=GRU_TOL)
     torch.testing.assert_close(h.cpu(), h_ref, rtol=0, atol=GRU_TOL)

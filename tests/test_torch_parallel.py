@@ -133,19 +133,22 @@ def test_gru_route_past_the_budget_is_the_plain_recurrence(T, B):
 def test_gru_route_where_the_reference_runs_its_kernel_raises_on_the_card(
         T, B, H):
     """Where the JAX package runs its kernel (``gru_fits_vmem``: H 640 at
-    the 0102 encoder's T 128, B 4) and no card kernel takes H, the route
-    does not take the plain recurrence: it names a kernel, whose card
-    launch raises before anything launches."""
-    assert gru_fits_vmem(T, B, H) and not gru.gru_fits_smem(T, B, H)
+    the 0102 encoder's T 128, B 4) the route does not take the plain
+    recurrence: it names a card kernel whose plan takes the shape (the
+    general kernel, past the async one's H), so its card launch does not
+    raise; the CPU path of that variant gives the plain version's answer."""
+    assert gru_fits_vmem(T, B, H) and gru.gru_fits_smem(T, B, H)
     variant = gru.gru_decode_route(T, B, H)
-    assert variant in gru.VARIANTS
+    assert variant == "general" and gru.general_plan(H, B) is not None
     rng = np.random.default_rng(H)
     args = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
             for s in ((T, B, 3 * H), (B, H), (H, 3 * H), (3 * H,))]
+    vl = torch.tensor([T - i % T for i in range(B)], dtype=torch.int32)
     launches = gru.gru_recurrence.launches
-    with pytest.raises(ValueError, match="beyond"):
-        gru._gru_recurrence_cuda(*args, torch.full((B,), T, dtype=torch.int32),
-                                 variant, 0)
+    ys, h = gru.gru_recurrence(*args, vl, variant=variant)
+    want_ys, want_h = gru.gru_recurrence_reference(*args, vl)
+    torch.testing.assert_close(ys, want_ys, rtol=0, atol=0)
+    torch.testing.assert_close(h, want_h, rtol=0, atol=0)
     assert gru.gru_recurrence.launches == launches
 
 
