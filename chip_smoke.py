@@ -120,30 +120,34 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    pixel difference, ms a decode) and a 2160-line one at ``min_short``
    544 (the 1/2 DCT scale); nothing gated;
 5. GRU kernels vs plain version: ``gru_recurrence`` against
-   ``gru_recurrence_reference`` in f32, every kernel that takes the shape
-   (``"general"`` at every case, ``"async"`` at every cluster size that
-   takes it, and ``"barrier"`` where it fits), two launches bit for bit, at
-   the 0102 serving shape (T 128, batch 4, H 256), the measured ``/caption``
-   lengths 21/30/104/69 (every row ends before T), H 512, the evaluate batch
-   (32), the default width (H 128), T 1, a per-epoch decode batch of the
-   captioning trainer (batch 32, T 512, lengths 64-512), and at the
-   ``/caption`` lengths the widths only the general kernel takes: H 300,
-   504, 640, 737 (the widest the JAX kernel takes at T 128, batch 4), 185
-   at batch 32 and 1020 at T 1; device times of
-   each (the profiler's, and beside them ``event_device_ms``: CUDA events
-   around one call queued behind a spinning stream, the clock a trace
+   ``gru_recurrence_reference`` in f32, the kernels that take the shape
+   (``"async"`` at every cluster size that takes it; ``"general"`` where it
+   is routed and where it streams Wh; ``"grid"`` where the general one
+   streams; ``"barrier"`` at the two 0102 cases), two launches bit for bit,
+   at the 0102 serving shape (T 128, batch 4, H 256), the measured
+   ``/caption`` lengths 21/30/104/69 (every row ends before T), H 512, the
+   evaluate batch (32), the default width (H 128), T 1, a per-epoch decode
+   batch of the captioning trainer (batch 32, T 512, lengths 64-512), and at
+   the ``/caption`` lengths the widths past the async kernel: H 300, 504,
+   640, 737 (the widest the JAX kernel takes at T 128, batch 4), 185 at
+   batch 32 and 1020 at T 1 (the grid kernel's at 640, 737 and 1020); device
+   times of each (the profiler's, and beside them ``event_device_ms``: CUDA
+   events around one call queued behind a spinning stream, the clock a trace
    falls back to where every profiler session dropped its kernels), which
    one the route takes, times of the plain version, the port's whole layer
-   (input GEMM + kernel) and cuDNN's ``nn.GRU`` over the same layer, the
+   (input GEMM + kernel) and cuDNN's ``nn.GRU`` over the same layer (CUDA
+   events around back-to-back calls, and where the general or grid kernel is
+   routed also around one call queued behind a spin: device time), the
    bound, and the serial floors: T cluster-barrier round trips for the
    barrier kernel, one ``st.async`` + mbarrier round trip of the kernel's
-   own exchange per live step for the async and general ones, and for the
-   general one its streamed bytes a live step over one SM's share of the
-   card's L2 read rate. ``[wide_decode]``: a 0102-shaped decode (batch 4
-   over 128 frames at the ``/caption`` lengths) at ``--num_hidden`` 640
-   and 300 through ``BeamSearchTranslator``: 3 launches of the general
-   kernel each, no plain-routed layer, the samples of the plain decode
-   exactly;
+   own exchange per live step for the async and general ones, one exchange
+   through L2 among the grid plan's CTAs per live step for the grid one (its
+   own probe), and for the general one its streamed bytes a live step over
+   one SM's share of the card's L2 read rate. ``[wide_decode]``: a
+   0102-shaped decode (batch 4 over 128 frames at the ``/caption`` lengths)
+   at ``--num_hidden`` 640 and 300 through ``BeamSearchTranslator``: 3
+   launches each of the kernel the route names (grid at 640, general at
+   300), no plain-routed layer, the samples of the plain decode exactly;
 6. caption path: the 0102 captioner (features 4096, H 256, 2 layers, 1
    bidirectional, E 100, V 254) with seeded random weights in flax naming,
    served by ``make_service``: 8 concurrent ``POST /caption`` over HTTP at
@@ -341,7 +345,8 @@ N_REQUESTS = 16
 SEED = 0
 KERNELS = ["dense_layer", "dense_layer_persistent", "dense_layer_cluster",
            "dense_layer_f32_tc", "gru_recurrence",
-           "gru_recurrence_async", "gru_recurrence_general"]
+           "gru_recurrence_async", "gru_recurrence_general",
+           "gru_recurrence_grid"]
 # profiler name of each dense-layer kernel variant (no name holds another);
 # the cluster kernel's name also carries its cluster size, <2>, <4> or <8>
 DENSE_KERNELS = {"persistent": "dense_layer_persistent_kernel",
@@ -351,7 +356,8 @@ DENSE_KERNELS = {"persistent": "dense_layer_persistent_kernel",
 # profiler name of each GRU kernel variant (no name holds another)
 GRU_KERNELS = {"barrier": "gru_recurrence_kernel",
                "async": "gru_recurrence_async_kernel",
-               "general": "gru_recurrence_general_kernel"}
+               "general": "gru_recurrence_general_kernel",
+               "grid": "gru_recurrence_grid_kernel"}
 ROUTE_ROUNDS = 3
 # profiler sessions tried before a trace that dropped kernel records fails
 # the run (three in a row did, once in a dozen runs), or, where all of them
@@ -535,8 +541,11 @@ SKIPGRAM_PROBE = 8192  # pairs whose mean loss is taken before and after
 DDP_BATCH, DDP_STEPS, DDP_TIMED = 8, 2, 3
 DDP_LOSS_TOL, DDP_UPDATE_FACTOR, DDP_UPDATE_FLOOR = 1e-3, 2.0, 1e-2
 DDP_HIDDEN = (1024, 256)
-# [wide_decode]: --num_hidden widths only the general GRU kernel takes
-WIDE_HIDDEN = (640, 300)
+# [wide_decode]: --num_hidden widths past the async GRU kernel, and the
+# kernel the route names at each
+WIDE_HIDDEN = {640: "grid", 300: "general"}
+# [gru_kernel]: the cases that run the barrier kernel (the A/B of record)
+BARRIER_CASES = ("serve_0102", "caption_lengths")
 
 # [pretrained]: seeded source-format weights (torchvision DenseNet121,
 # FlowNet2-S) through the converter's CLI into the drivers' loaders. One
@@ -564,10 +573,11 @@ GRU_CASES = [
     ("t1", 1, 4, 256, [1, 0, 1, 1]),
     ("decode_b32_t512", 512, 32, 256,
      [64 + 448 * ((7 * i) % 32) // 31 for i in range(32)]),
-    # widths only the general kernel takes, at the /caption lengths: a
-    # ragged H, one where the async plan fails, past the async kernel's
-    # 512 (streamed Wh), the widest the JAX kernel takes at the 0102
-    # encoder's shape, the evaluate batch (4 clusters), the widest at B 4
+    # widths past the async kernel, at the /caption lengths: a ragged H,
+    # one where the async plan fails, past one cluster's share of Wh (the
+    # general kernel streams it, the grid kernel holds it: two clusters),
+    # the widest the JAX kernel takes at the 0102 encoder's shape, the
+    # evaluate batch (4 chunks of rows), the widest at B 4 (three clusters)
     ("ragged_h300", 128, 4, 300, CAPTION_LENGTHS),
     ("plan_gap_h504", 128, 4, 504, CAPTION_LENGTHS),
     ("wide_h640", 128, 4, 640, CAPTION_LENGTHS),
@@ -2931,26 +2941,63 @@ def gru_work(T, B, H, lengths):
     return flops, nbytes
 
 
-def gru_runs(gru, H, B):
-    """(key, variant, cluster) of every GRU kernel configuration that takes
-    (H, B): the barrier kernel where it fits, the async one at every
-    cluster size whose plan exists, the general one wherever its plan
-    exists (every H up to 1023)."""
-    runs = [("barrier", "barrier", None)] if gru.barrier_fits(H, B) else []
+def grid_exchange_round_trip_us(ctas: int, rows: int, hidden: int):
+    """What chains two steps of the grid GRU kernel, in microseconds: each
+    of ``ctas`` CTAs stores its run of ``hidden`` units of ``rows`` rows
+    into device memory, arrives on a counter, waits for every CTA's arrival
+    and copies the ``rows`` x ``hidden`` floats back from L2."""
+    from tennis_torch.ops import gru
+    from tennis_torch.ops._build import load_library
+
+    fn = load_library("gru_recurrence_grid").gru_grid_exchange_probe_launch
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    workspace = torch.zeros(
+        gru.COUNTER_STRIDE + 2 * rows * (-(-hidden // 4) * 4),
+        dtype=torch.int32, device="cuda")
+    sink = torch.empty(ctas, device="cuda")
+
+    def run(iters):
+        workspace.zero_()
+        err = fn(iters, rows, hidden, ctas, workspace.data_ptr(),
+                 sink.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"grid exchange probe launch failed: CUDA error "
+                             f"{err}")
+
+    return _round_trip_us(run)
+
+
+def gru_runs(gru, name, T, B, H):
+    """(key, variant, cluster) of the GRU kernel configurations timed at
+    case ``name``: the barrier kernel at BARRIER_CASES where it fits, the
+    async one at every cluster size whose plan exists, the general one
+    where it is routed and where it streams Wh (the A/B against the grid
+    kernel), the grid one where the general one streams and its plan
+    exists."""
+    runs = [("barrier", "barrier", None)] \
+        if name in BARRIER_CASES and gru.barrier_fits(H, B) else []
     runs += [(f"async{c}", "async", c) for c in gru.ASYNC_CLUSTERS
              if gru.gru_plan(H, B, c) is not None]
-    if gru.general_plan(H, B) is not None:
+    general = gru.general_plan(H, B)
+    streams = general is not None and general.stream_rows > 0
+    if streams or gru.gru_route(T, B, H) == "general":
         runs.append(("general", "general", None))
+    if streams and gru.grid_plan(H, B) is not None:
+        runs.append(("grid", "grid", None))
     return runs
 
 
 def gru_routed(gru, T, B, H):
-    """(key of the routed configuration, its cluster size, the floats each
-    CTA sends a peer per step) at (T, B, H)."""
+    """(key of the routed configuration, and for the async and general
+    kernels their cluster size and the floats each CTA sends a peer per
+    step, None for the grid kernel) at (T, B, H)."""
     routed = gru.gru_route(T, B, H)
     if routed == "async":
         plan = gru.gru_plan(H, B)
         return f"async{plan.cluster}", plan.cluster, plan.rows * plan.units
+    if routed == "grid":
+        return "grid", None, None
     plan = gru.general_plan(H, B)
     return "general", plan.cluster, -(-plan.rows * plan.units // 4) * 4
 
@@ -2992,7 +3039,7 @@ def gru_phase(dev):
         by_key, ok = {}, True
         with torch.inference_mode():
             ys_ref, h_ref = gru.gru_recurrence_reference(gx, h0, wh, bh, vl)
-            for key, variant, c in gru_runs(gru, H, B):
+            for key, variant, c in gru_runs(gru, name, T, B, H):
                 def call(variant=variant, c=c):
                     return gru.gru_recurrence(gx, h0, wh, bh, vl, variant, c)
 
@@ -3033,7 +3080,20 @@ def gru_phase(dev):
             ys_layer, _ = gru.gru_sequence(x, h0, wx, wh, bx, bh, full)
             lib_err = (ys_lib - ys_layer).abs().max().item()
             library_ms = time_ms(lambda: lib(x, h0[None]), reps=10, rounds=3)
-        exchange_us = exchange_round_trip_us(cluster, floats)
+            # device time of both layers (every kernel of one call, queued
+            # behind a spin: the host's launches would set the events' time
+            # at T 1) where the general or grid kernel is routed
+            device = {}
+            if routed_key in ("general", "grid"):
+                device = {"layer_device_ms": event_device(
+                    lambda: gru.gru_sequence(x, h0, wx, wh, bx, bh, full))[0],
+                    "library_device_ms": event_device(
+                        lambda: lib(x, h0[None]))[0]}
+        grid = gru.grid_plan(H, B)
+        grid_us = None if grid is None else grid_exchange_round_trip_us(
+            grid.ctas, min(B, grid.rows), H)
+        exchange_us = exchange_round_trip_us(cluster, floats) \
+            if cluster is not None else None
         flops, nbytes = gru_work(T, B, H, lengths)
         t_ops = flops / PEAK_F32_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -3047,9 +3107,14 @@ def gru_phase(dev):
         row = {"ms": by_key[routed_key]["ms"],
                "device_ms": by_key[routed_key]["device_ms"],
                "plain_ms": plain_ms, "layer_ms": layer_ms,
-               "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+               "library_ms": library_ms, **device,
+               "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "serial_floor_ms": t_live * exchange_us / 1e3,
+               # the routed kernel's exchange, once a live step
+               "serial_floor_ms": t_live * (grid_us if cluster is None
+                                            else exchange_us) / 1e3,
+               "grid_serial_floor_ms": t_live * grid_us / 1e3
+               if grid_us is not None else None,
                "barrier_serial_floor_ms": T * barrier_us / 1e3,
                "general_stream_floor_ms": t_live * stream_bytes
                / (l2_gbps * 1e9 / torch.cuda.get_device_properties(
@@ -3058,12 +3123,15 @@ def gru_phase(dev):
             live_steps=t_live, tol=GRU_TOL, routed=routed_key, fastest=fastest,
             routed_over_fastest=by_key[routed_key]["device_ms"]
             / by_key[fastest]["device_ms"], variants=by_key,
-            general_over_routed=by_key["general"]["device_ms"]
-            / by_key[routed_key]["device_ms"],
+            grid_over_general=by_key["grid"]["device_ms"]
+            / by_key["general"]["device_ms"] if "grid" in by_key else None,
             plan=(gru.gru_plan(H, B) or general)._asdict(),
-            general_plan=general._asdict(), gflop=flops / 1e9,
-            mbytes=nbytes / 1e6, cluster_round_trip_us=barrier_us,
-            exchange_round_trip_us=exchange_us, l2_read_gbps=l2_gbps,
+            general_plan=general._asdict(),
+            grid_plan=grid._asdict() if grid is not None else None,
+            gflop=flops / 1e9, mbytes=nbytes / 1e6,
+            cluster_round_trip_us=barrier_us,
+            exchange_round_trip_us=exchange_us,
+            grid_exchange_round_trip_us=grid_us, l2_read_gbps=l2_gbps,
             general_stream_bytes_per_step=stream_bytes,
             library_vs_layer_full_length_err=lib_err, ok=ok, **row)
         if not ok:
@@ -3113,12 +3181,13 @@ def decode_against_plain(dev, hidden, src, vl, rng):
 
 
 def wide_decode_phase(dev):
-    """The 0102 captioner's beam decode at widths that only the general GRU
-    kernel takes: --num_hidden 640 and 300, batch 4 over 128 frames of
-    seeded features at the /caption lengths (``decode_against_plain``).
-    Gates: the route names the general kernel, 3 launches of it a decode,
-    no plain-routed layer, and the samples of the plain decode exactly.
-    Returns the GRU launches by variant."""
+    """The 0102 captioner's beam decode at widths past the async GRU
+    kernel: --num_hidden 640 and 300, batch 4 over 128 frames of seeded
+    features at the /caption lengths (``decode_against_plain``). Gates: the
+    route names WIDE_HIDDEN's kernel (grid at 640, general at 300), 3
+    launches of it a decode and none of another, no plain-routed layer, and
+    the samples of the plain decode exactly. Returns the GRU launches by
+    variant."""
     from tennis_torch.ops import gru
 
     rng = np.random.default_rng(SEED + 18)
@@ -3126,13 +3195,13 @@ def wide_decode_phase(dev):
         .astype(np.float32)
     vl = np.array(CAPTION_LENGTHS, np.int32)
     launches, ok = dict.fromkeys(gru.VARIANTS, 0), True
-    for hidden in WIDE_HIDDEN:
+    for hidden, want in WIDE_HIDDEN.items():
         route = gru.gru_decode_route(SRC_MAX_LEN, CAPTION_BATCH, hidden)
         d = decode_against_plain(dev, hidden, src, vl, rng)
         by_variant = d["launches"]
         for v in launches:
             launches[v] += by_variant[v]
-        d_ok = (route == "general" and by_variant["general"] == 3
+        d_ok = (route == want and by_variant[want] == 3
                 and sum(by_variant.values()) == 3 and d["plain_routed"] == 0
                 and d["samples_equal_plain_decode"]
                 and bool(np.isfinite(d["scores"]).all()))
@@ -3146,8 +3215,8 @@ def wide_decode_phase(dev):
                 d["lengths"], d["plain"][2])),
             decode_ms=d["decode_ms"], ok=d_ok)
     if not ok:
-        raise SystemExit("a decode at a width only the general GRU kernel "
-                         "takes failed its gates")
+        raise SystemExit("a decode at a width past the async GRU kernel "
+                         "failed its gates")
     return launches
 
 
@@ -5575,10 +5644,12 @@ def gru_entry(name, variant, rows, launches, max_abs):
     """The kernels-line entry of one GRU variant: the barrier and async
     kernels at the 0102 serving shape (the async one at the cluster size
     its plan takes there), the general one at the 0102 encoder's shape at
-    --num_hidden 640 (the full-width decode of [wide_decode])."""
+    --num_hidden 300 and the grid one at 640 (the full-width decodes of
+    [wide_decode])."""
     from tennis_torch.ops import gru
 
-    case = "wide_h640" if variant == "general" else "serve_0102"
+    case = {"general": "ragged_h300", "grid": "wide_h640"}.get(variant,
+                                                              "serve_0102")
     _, T, B, H, lengths = next(c for c in GRU_CASES if c[0] == case)
     row = rows[case]
     key = f"async{gru.gru_plan(H, B).cluster}" if variant == "async" \
@@ -5587,7 +5658,9 @@ def gru_entry(name, variant, rows, launches, max_abs):
     floor = {"async": row["serial_floor_ms"],
              "barrier": row["barrier_serial_floor_ms"],
              "general": max(row["serial_floor_ms"],
-                            row["general_stream_floor_ms"])}[variant]
+                            row["general_stream_floor_ms"]),
+             "grid": row["grid_serial_floor_ms"]}[variant]
+    wide = variant in ("general", "grid")
     return {
         "name": name, "route": "cuda", "source": f"tennis_torch/csrc/{name}.cu",
         "replaces": "tennis_tpu/ops/pallas/gru.py:41",
@@ -5595,12 +5668,13 @@ def gru_entry(name, variant, rows, launches, max_abs):
         "ms": mine["ms"], "device_ms": mine["device_ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-        "layer_ms": row["layer_ms"], "us_per_step": mine["us_per_step"],
-        "serial_floor_ms": floor,
+        "layer_ms": row["layer_ms"],
+        "layer_device_ms": row.get("layer_device_ms"),
+        "library_device_ms": row.get("library_device_ms"),
+        "us_per_step": mine["us_per_step"], "serial_floor_ms": floor,
         "work": f"one GRU recurrence of the 0102 encoder: T {T}, batch {B}, "
                 f"H {H}, lengths {lengths} ({key}); launches count the "
-                + ("decodes at --num_hidden 640 and 300 of [wide_decode]"
-                   if variant == "general" else
+                + (f"decodes at --num_hidden {H} of [wide_decode]" if wide else
                    "/caption batches served, the per-epoch and "
                    "evaluate_gnmt decodes of [caption_driver] and the "
                    "--pallas_gru exported program's batches in "
@@ -5719,7 +5793,9 @@ def main() -> int:
         gru_entry("gru_recurrence_async", "async", gru_rows, gru_launches,
                   gru_abs),
         gru_entry("gru_recurrence_general", "general", gru_rows,
-                  gru_launches, gru_abs)]}))
+                  gru_launches, gru_abs),
+        gru_entry("gru_recurrence_grid", "grid", gru_rows, gru_launches,
+                  gru_abs)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

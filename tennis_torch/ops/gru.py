@@ -3,7 +3,7 @@
 Counterpart of ``tennis_tpu/ops/pallas/gru.py``. The input projection of the
 whole sequence is one large matmul outside the kernel (the cuDNN trick, as
 in ``RNNLayer``); what remains is the strictly sequential (B, H) x (H, 3H)
-recurrence, which one launch runs for all T steps. Two kernels compute it:
+recurrence, which one launch runs for all T steps. Four kernels compute it:
 
 - ``"async"``, ``csrc/gru_recurrence_async.cu``: a cluster of 8 or 16 CTAs
   per chunk of up to 8 batch rows, each thread keeping its share of Wh in
@@ -15,12 +15,17 @@ recurrence, which one launch runs for all T steps. Two kernels compute it:
   1023 (``general_plan``): a cluster of min(16, H) CTAs owning ragged runs
   of units, the async kernel's exchange, Wh in registers and shared memory
   as far as they hold it and the rest streamed from L2 every step.
+- ``"grid"``, ``csrc/gru_recurrence_grid.cu``: where the general kernel
+  streams (H past ~560): Wh held whole over several clusters of 16 CTAs
+  (``grid_plan``), loaded once, the new hidden state exchanged between all
+  of them through L2 with a release/acquire counter; a cooperative launch.
 - ``"barrier"``, ``csrc/gru_recurrence.cu``: a cluster of 8 CTAs, Wh in
   shared memory, one cluster barrier a step; H up to 368. Kept for the A/B.
 
 ``gru_recurrence`` routes each (T, B, H) to the async kernel where it takes
-the shape (the card measured it fastest there) and to the general one
-elsewhere (``gru_route``). Beside the kernels sits their plain PyTorch
+the shape (the card measured it fastest there), to the grid kernel where the
+general one would stream Wh, and to the general one elsewhere
+(``gru_route``). Beside the kernels sits their plain PyTorch
 version, ``gru_recurrence_reference``. The launch is the ``torch.library``
 custom op ``tennis_torch::gru_recurrence`` (:func:`gru_recurrence_op`),
 whose CUDA implementation launches a kernel or raises and whose CPU
@@ -38,7 +43,7 @@ import torch
 
 SMEM_LIMIT = 232448    # 227 KiB: the most dynamic shared memory a CTA can use
 MAX_HIDDEN = 512       # the widest H the async kernel takes (its kMaxH)
-VARIANTS = ("barrier", "async", "general")
+VARIANTS = ("barrier", "async", "general", "grid")
 
 # "barrier" (csrc/gru_recurrence.cu)
 CLUSTER = 8            # CTAs per cluster (csrc kCluster)
@@ -258,6 +263,99 @@ def general_partition(H: int, plan: GeneralPlan):
     return runs, parts
 
 
+# "grid" (csrc/gru_recurrence_grid.cu), mirrored: the source constants
+GRID_CLUSTER = 16          # kCluster: CTAs per cluster
+GRID_MAX_CTAS = 112        # kMaxCtas: CTAs of one launch, every chunk of rows
+ROW_ALIGN = 4              # kRowAlign: a segment's rows are a multiple of it
+COUNTER_STRIDE = 32        # kCounterStride: ints per chunk's counter
+
+
+class GridPlan(NamedTuple):
+    """The grid kernel's partition of one (H, B): for each of ``chunks``
+    chunks of ``rows`` batch rows, ``clusters`` clusters of ``cluster``
+    CTAs (``ctas`` = G in all), CTA k owning a run of floor(H / G) or
+    ceil(H / G) = ``units`` units; ``threads`` threads, of which the first
+    ``units`` x ``segments`` are product threads: thread (u, s) sums rows
+    [s L, (s + 1) L) (L = ``seg_rows``) of the r, z and n columns of unit
+    u, ``reg_rows`` of them from registers and the other ``smem_rows`` from
+    shared memory, all loaded once. ``smem_bytes`` is the CTA's dynamic
+    shared memory, ``workspace_words`` the 4-byte words of the zeroed
+    workspace a launch needs (the chunks' counters and the exchanged h)."""
+    cluster: int
+    clusters: int
+    ctas: int
+    units: int
+    segments: int
+    rows: int
+    chunks: int
+    threads: int
+    seg_rows: int
+    reg_rows: int
+    smem_rows: int
+    smem_bytes: int
+    workspace_words: int
+
+
+def _grid_smem_floats(H, G, S, L, R):
+    """The source's ``make_plan``: dynamic shared memory in floats."""
+    UM = _ceil(H, G)
+    return R * S * L + _round4(S * R * 3 * UM) + 3 * (L - REG_ROWS) * UM * S
+
+
+@functools.lru_cache(maxsize=4096)
+def _grid_plan(H: int, B: int) -> GridPlan | None:
+    if H < 1 or H > GENERAL_MAX_HIDDEN:
+        return None
+    cap = SMEM_LIMIT // 4
+    for N in range(1, GRID_MAX_CTAS // GRID_CLUSTER + 1):
+        G = N * GRID_CLUSTER
+        if G > H:
+            return None
+        UM = _ceil(H, G)
+        S = max(1, min(GENERAL_MAX_THREADS // UM, H // REG_ROWS))
+        L = max(REG_ROWS, _ceil(_ceil(H, S), ROW_ALIGN) * ROW_ALIGN)
+        R = min(1 << (min(B, GENERAL_MAX_ROWS) - 1).bit_length(),
+                1 << ((GENERAL_MAX_THREADS // UM).bit_length() - 1))
+        chunks = _ceil(B, R)
+        if G * chunks > GRID_MAX_CTAS:
+            return None  # more CTAs would not all be resident at once
+        floats = _grid_smem_floats(H, G, S, L, R)
+        if floats <= cap:
+            threads = _ceil(max(UM * S, R * UM), 32) * 32
+            return GridPlan(GRID_CLUSTER, N, G, UM, S, R, chunks, threads, L,
+                            REG_ROWS, L - REG_ROWS, 4 * floats,
+                            COUNTER_STRIDE * chunks + 2 * B * _round4(H))
+    return None
+
+
+def grid_plan(H: int, B: int) -> GridPlan | None:
+    """The grid kernel's partition at hidden size H and batch B: the fewest
+    clusters whose CTAs hold Wh whole, or None where none do within
+    :data:`GRID_MAX_CTAS` CTAs for all of B's chunks of rows (or where a
+    CTA would own no unit: H below 16)."""
+    return _grid_plan(H, max(B, 1))
+
+
+def grid_partition(H: int, plan: GridPlan):
+    """Who owns what in the grid kernel, as the source computes it:
+    ``[(rank, first unit, units)]`` for every CTA of a chunk, and for every
+    CTA ``rank`` and product thread (u, s) of a unit it owns ``[(rank, u,
+    s, first row, rows in registers, rows in shared memory)]``, counting
+    rows of Wh (below H) only."""
+    G, S, L = plan.ctas, plan.segments, plan.seg_rows
+    base, extra = divmod(H, G)
+    runs = [(k, k * base + min(k, extra), base + (k < extra))
+            for k in range(G)]
+    parts = []
+    for rank, _, U in runs:
+        for s in range(S):
+            k0, k1 = s * L, s * L + plan.reg_rows
+            n_reg = max(0, min(k1, H) - k0)
+            n_smem = max(0, min(k1 + plan.smem_rows, H) - k1)
+            parts += [(rank, u, s, k0, n_reg, n_smem) for u in range(U)]
+    return runs, parts
+
+
 def gru_fits_smem(T: int, B: int, H: int) -> bool:
     """Whether a kernel of the card takes hidden size H: every H from 1 to
     1023 (the general kernel, ``general_plan``; the async kernel takes the
@@ -280,10 +378,18 @@ def gru_fits_smem(T: int, B: int, H: int) -> bool:
 def gru_route(T: int, B: int, H: int) -> str:
     """The variant ``gru_recurrence`` launches by default: the async kernel
     wherever it takes H (the faster at every shape measured, above), with
-    ``gru_plan``'s cluster size; else the general kernel, whose launch
-    raises past H 1023. The barrier kernel only where it is forced."""
+    ``gru_plan``'s cluster size; else the grid kernel wherever the general
+    one would stream part of Wh every step and ``grid_plan`` holds it whole;
+    else the general kernel, whose launch raises past H 1023. The barrier
+    kernel only where it is forced."""
     del T
-    return "async" if gru_plan(H, B) is not None else "general"
+    if gru_plan(H, B) is not None:
+        return "async"
+    general = general_plan(H, B)
+    if general is not None and general.stream_rows > 0 \
+            and grid_plan(H, B) is not None:
+        return "grid"
+    return "general"
 
 
 # the JAX package's budget for its kernel's gates, outputs and weights
@@ -371,15 +477,16 @@ def _launcher(variant):
     from tennis_torch.ops._build import load_library
 
     name = {"barrier": "gru_recurrence", "async": "gru_recurrence_async",
-            "general": "gru_recurrence_general"}[variant]
+            "general": "gru_recurrence_general",
+            "grid": "gru_recurrence_grid"}[variant]
     fn = getattr(load_library(name), f"{name}_launch")
     if fn.argtypes is None:
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        # ... T, B, H, then S, R (barrier), C, S, R (async) or C, S, L, R,
-        # LR (general)
-        n_int = {"barrier": 5, "async": 6, "general": 8}[variant]
+        # ... T, B, H, then S, R (barrier), C, S, R (async), C, S, L, R, LR
+        # (general) or G, S, L, R and the workspace (grid); the stream
+        n_int = {"barrier": 5, "async": 6, "general": 8, "grid": 7}[variant]
         fn.argtypes = [p, ll, ll, p, p, ll, ll, p, p, p, ll, ll, p] + \
-            [i] * n_int + [p]
+            [i] * n_int + [p] * (2 if variant == "grid" else 1)
         fn.restype = ctypes.c_int
     return fn
 
@@ -396,8 +503,8 @@ def gru_recurrence_op(gates_x: torch.Tensor, h0: torch.Tensor,
     tensors (an op's output may alias no input). ``variant`` is
     :func:`gru_route`'s, ``cluster`` the async kernel's cluster size (0:
     :func:`gru_plan`'s; the general kernel takes only its own, min(16,
-    H)). On the CPU it runs :func:`gru_recurrence_reference`, whatever the
-    variant."""
+    H), the grid kernel only 16). On the CPU it runs
+    :func:`gru_recurrence_reference`, whatever the variant."""
     ys, h_final = gru_recurrence_reference(gates_x, h0, wh, bh, valid_length)
     return ys.transpose(0, 1).contiguous(), h_final
 
@@ -435,6 +542,26 @@ def _gru_recurrence_cuda(gates_x, h0, wh, bh, valid_length, variant, cluster):
             wh = wh.contiguous()
         partition = (plan.cluster, plan.segments, plan.seg_rows, plan.rows,
                      plan.smem_rows)
+    elif variant == "grid":
+        plan = grid_plan(H, B)
+        if plan is None:
+            raise ValueError(
+                f"gru_recurrence grid kernel: no grid holds Wh of hidden size "
+                f"{H} at batch {B} (H from {GRID_CLUSTER} to "
+                f"{GENERAL_MAX_HIDDEN}, within {GRID_MAX_CTAS} resident CTAs "
+                f"for every chunk of rows); the general kernel takes it")
+        if cluster not in (0, plan.cluster):
+            raise ValueError(f"gru_recurrence grid kernel: H {H} takes "
+                             f"clusters of {plan.cluster}, not {cluster}")
+        if wh.stride(1) != 1:
+            # Wh is read once, before step 0: row-major, a warp's loads
+            # read adjacent columns
+            wh = wh.contiguous()
+        # the chunks' counters and the exchanged h, zero for every launch
+        workspace = torch.zeros(plan.workspace_words, dtype=torch.int32,
+                                device=gates_x.device)
+        partition = (plan.ctas, plan.segments, plan.seg_rows, plan.rows,
+                     workspace.data_ptr())
     else:
         if not barrier_fits(H, B):
             need = _smem_bytes(H, *_split(H, B)) if H % CLUSTER == 0 else None
@@ -476,11 +603,11 @@ def gru_recurrence(gates_x, h0, wh, bh, valid_length=None,
     """GRU recurrence over precomputed input gates (see
     :func:`gru_recurrence_reference` for the function), through
     :func:`gru_recurrence_op`: CUDA tensors go through the kernel that
-    ``variant`` names (``"async"``, ``"general"`` or ``"barrier"``; by
-    default :func:`gru_route`'s choice, resolved here from the static
-    shapes), the async one with ``cluster`` CTAs per chunk of rows (by
-    default :func:`gru_plan`'s); CPU tensors through the plain version,
-    whatever the variant. On the card a gradient may not be required: the
+    ``variant`` names (``"async"``, ``"general"``, ``"grid"`` or
+    ``"barrier"``; by default :func:`gru_route`'s choice, resolved here
+    from the static shapes), the async one with ``cluster`` CTAs per chunk
+    of rows (by default :func:`gru_plan`'s); CPU tensors through the plain
+    version, whatever the variant. On the card a gradient may not be required: the
     kernels are forward-only.
 
     Returns (ys (T, B, H), h_final (B, H)) f32; ``ys`` is a (T, B, H) view

@@ -13,8 +13,9 @@ matmul. Then, as in the JAX package, the recurrence takes one of two paths:
 - inside :func:`gru_decode` (the counterpart of the JAX ``pallas_gru``
   context, which the translator sets around its decode), a GRU layer runs
   :func:`tennis_torch.ops.gru.gru_recurrence`: the forward-only CUDA kernel
-  for tensors on the card (the async kernel where it takes H, the general
-  one at every other H up to 1023), its plain version on the CPU; a shape
+  for tensors on the card (the async kernel where it takes H, the grid one
+  where the general one would stream Wh, the general one at every other H
+  up to 1023), its plain version on the CPU; a shape
   that no card kernel takes and past the JAX kernel's budget (H >= 1024,
   ``ops.gru.gru_decode_route``) runs the plain recurrence below, as the
   JAX package runs its scan there, and counts in

@@ -2,21 +2,23 @@
 
 Builds ``csrc/gru_recurrence.cu`` (or, with ``--kernel async``,
 ``csrc/gru_recurrence_async.cu``; with ``--kernel general``,
-``csrc/gru_recurrence_general.cu``) as it is and once per ablation with one
+``csrc/gru_recurrence_general.cu``; with ``--kernel grid``,
+``csrc/gru_recurrence_grid.cu``) as it is and once per ablation with one
 text edit (each named in ``ABLATIONS``), then times every build by device
 time (torch.profiler) at the kernel's cases, in two profiler sessions, the
 second in the reverse order, and prints one JSON line per shape: for the
 barrier and async kernels the 0102 serving shape (T 128, batch 4, H 256,
 lengths 128/100/37/1) and the evaluate batch (32 rows); for the general
 one the 0102 encoder's shape at H 640 (Wh partly streamed) and 300 (ragged
-runs of units, Wh resident), at the ``/caption`` lengths. ``--cluster
-8|16`` sets the async kernel's cluster size (by default ``gru_plan``'s).
-An ablation that skips work computes a wrong recurrence: its time says
-what that work costs on the kernel's critical path, and nothing else.
+runs of units, Wh resident), at the ``/caption`` lengths; for the grid one
+that shape at H 640 and 737 (two clusters). ``--cluster 8|16`` sets the
+async kernel's cluster size (by default ``gru_plan``'s). An ablation that
+skips work computes a wrong recurrence: its time says what that work costs
+on the kernel's critical path, and nothing else.
 
 Run from the root of a checkout: ``python -m
 tennis_torch.tools.gru_ablation [--kernel async [--cluster 16] | --kernel
-general]``.
+general | --kernel grid]``.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ import threading
 import torch
 
 SOURCES = {"barrier": "gru_recurrence", "async": "gru_recurrence_async",
-           "general": "gru_recurrence_general"}
+           "general": "gru_recurrence_general", "grid": "gru_recurrence_grid"}
 # name -> [(text in the source, replacement)]
 ABLATIONS = {"barrier": {
     "as_is": [],
@@ -125,6 +127,18 @@ ABLATIONS = {"barrier": {
     # every row runs all T steps (no dead-step cut)
     "all_steps": [("  for (int b = 0; b < nb; ++b) t_end = max(t_end, min(max(a.vl[row0 + b], 0), a.T));",
                    "  t_end = a.T;")],
+}, "grid": {
+    "as_is": [],
+    # no wait for the other CTAs' h: each step copies whatever the exchange
+    # buffer holds (the arrivals and the copy stay)
+    "no_cross_exchange": [
+        ("      if (tid == 0) wait_arrivals(counter, static_cast<unsigned int>(G * t));\n",
+         "")],
+    # no dot product: the gate math on zero partials (the exchange runs)
+    "no_product": [("      for (int i = 0; i < kRegL; i += 4) {",
+                    "      for (int i = 0; i < 0; i += 4) {"),
+                   ("      for (int i = 0; i < LR; i += 4) {",
+                    "      for (int i = 0; i < 0; i += 4) {")],
 }}
 # (name, T, batch, H, valid lengths)
 CASES = {"barrier": [("serve_0102", 128, 4, 256, [128, 100, 37, 1]),
@@ -133,6 +147,10 @@ CASES = {"barrier": [("serve_0102", 128, 4, 256, [128, 100, 37, 1]),
 CASES["async"] = CASES["barrier"]
 CASES["general"] = [("wide_h640", 128, 4, 640, [21, 30, 104, 69]),
                     ("ragged_h300", 128, 4, 300, [21, 30, 104, 69])]
+CASES["grid"] = [("wide_h640", 128, 4, 640, [21, 30, 104, 69]),
+                 ("edge_h737", 128, 4, 737, [21, 30, 104, 69])]
+# ints after T, B, H: the partition; the grid kernel also takes a workspace
+N_INTS = {"barrier": 5, "async": 6, "general": 8, "grid": 7}
 
 
 def build_all(kernel, out_dir):
@@ -223,7 +241,7 @@ def main(argv=None) -> int:
         fn = getattr(ctypes.CDLL(lib), f"{SOURCES[kernel]}_launch")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fn.argtypes = [p, ll, ll, p, p, ll, ll, p, p, p, ll, ll, p] + \
-            [i] * {"barrier": 5, "async": 6, "general": 8}[kernel] + [p]
+            [i] * N_INTS[kernel] + [p] * (2 if kernel == "grid" else 1)
         fn.restype = ctypes.c_int
         launch[name] = fn
         print(json.dumps({"build": name, "ptxas": ptxas}), flush=True)
@@ -245,6 +263,9 @@ def main(argv=None) -> int:
             plan = gru.general_plan(H, B)
             partition = (plan.cluster, plan.segments, plan.seg_rows,
                          plan.rows, plan.smem_rows)
+        elif kernel == "grid":
+            plan = gru.grid_plan(H, B)
+            partition = (plan.ctas, plan.segments, plan.seg_rows, plan.rows)
         else:
             plan = gru.gru_plan(H, B, opts.cluster)
             partition = (plan.cluster, plan.segments, plan.rows)
@@ -253,8 +274,16 @@ def main(argv=None) -> int:
                 vl.data_ptr(), ys.data_ptr(), ys.stride(0), ys.stride(1),
                 hfin.data_ptr(), T, B, H, *partition]
 
+        # the grid kernel's counters and exchange buffer, zeroed before
+        # every launch as the wrapper does
+        workspace = torch.zeros(plan.workspace_words if kernel == "grid"
+                                else 0, dtype=torch.int32, device=dev)
+        extra = (workspace.data_ptr(),) if kernel == "grid" else ()
+
         def run(name):
-            err = launch[name](*args, torch.cuda.current_stream().cuda_stream)
+            workspace.zero_()
+            err = launch[name](*args, *extra,
+                               torch.cuda.current_stream().cuda_stream)
             if err:
                 raise SystemExit(f"{name}: CUDA error {err}")
 

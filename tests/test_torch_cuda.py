@@ -1,7 +1,7 @@
 """The port on a CUDA card: the three dense-layer kernels (tile, persistent
 and cluster) against their plain version at small and ragged shapes, the
 wrapper's refusals and choice of kernel, DenseNet forwards through the
-kernels (DenseNet161's widths through ``dense_layer_convs``), the three GRU
+kernels (DenseNet161's widths through ``dense_layer_convs``), the four GRU
 kernels, the paths around them (FlowNet-S through cuDNN; ``predict``
 over in-memory frames) and the ``torch.export`` programs that carry both
 kernels as custom ops. Marked ``cuda``; each test skips without a card. On a
@@ -486,6 +486,125 @@ def test_gru_general_plan_mirror_and_refusals(dev):
     assert gru.gru_recurrence.variant_launches == before
 
 
+# (T, B, H, lengths): the shapes where the general kernel streams Wh and the
+# grid kernel holds it (chip_smoke.py's wide_h640, edge_h737, t1_h1020), one
+# row (one cluster of 16), a full chunk of 8 rows, two chunks, three
+# clusters, the widest H, lengths of 0
+GRID_CASES = [
+    (128, 4, 640, [21, 30, 104, 69]), (128, 4, 737, [21, 30, 104, 69]),
+    (1, 4, 1020, [1, 1, 1, 1]), (20, 1, 640, [20]),
+    (12, 8, 700, [12, 0, 5, 12, 1, 2, 3, 11]),
+    (16, 9, 1000, [16, 0, 3, 16, 9, 1, 16, 2, 5]), (7, 3, 900, [7, 2, 0]),
+    (5, 2, 1023, [0, 0])]
+
+
+@pytest.mark.parametrize("layout", ["row_major", "transposed"])
+@pytest.mark.parametrize("T,B,H,lengths", GRID_CASES)
+def test_gru_grid_matches_plain(dev, T, B, H, lengths, layout):
+    """The grid kernel, routed at each case, within 1e-4 of the plain
+    version, two launches bit for bit, zeros and a frozen carry past each
+    length, with Wh row-major and as the transposed (3H, H) weight RNNLayer
+    passes."""
+    args, gru = _gru_inputs(dev, T, B, H, lengths, seed=H + B + T)
+    if layout == "transposed":
+        args = (args[0], args[1], args[2].t().contiguous().t(), *args[3:])
+    assert gru.gru_route(T, B, H) == "grid"
+    before = dict(gru.gru_recurrence.variant_launches)
+    ys, h = gru.gru_recurrence(*args)
+    ys2, h2 = gru.gru_recurrence(*args, variant="grid")
+    ys_ref, h_ref = gru.gru_recurrence_reference(*args)
+    torch.cuda.synchronize()
+    assert gru.gru_recurrence.variant_launches == {
+        **before, "grid": before["grid"] + 2}
+    assert torch.equal(ys, ys2) and torch.equal(h, h2)
+    torch.testing.assert_close(ys, ys_ref, rtol=0, atol=GRU_TOL)
+    torch.testing.assert_close(h, h_ref, rtol=0, atol=GRU_TOL)
+    for b, n in enumerate(lengths):
+        assert not ys[n:, b].any()
+        if n == 0:
+            torch.testing.assert_close(h[b], args[1][b], rtol=0, atol=0)
+
+
+def test_gru_grid_on_two_streams(dev):
+    """Two grid launches queued on two streams at once, each with its own
+    workspace, both right."""
+    lengths = [21, 30, 104, 69]
+    runs = [_gru_inputs(dev, 128, 4, H, lengths, seed=H)[0] for H in (640, 737)]
+    from tennis_torch.ops import gru
+
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in runs]
+    outs = []
+    for stream, args in zip(streams, runs):
+        with torch.cuda.stream(stream):
+            outs.append(gru.gru_recurrence(*args, variant="grid"))
+    torch.cuda.synchronize()
+    for args, (ys, h) in zip(runs, outs):
+        ys_ref, h_ref = gru.gru_recurrence_reference(*args)
+        torch.testing.assert_close(ys, ys_ref, rtol=0, atol=GRU_TOL)
+        torch.testing.assert_close(h, h_ref, rtol=0, atol=GRU_TOL)
+
+
+def test_gru_grid_plan_mirror_and_refusals(dev):
+    """The launcher's shared-memory budget equals grid_plan's; every plan's
+    CTAs fit the clusters the card holds at once (so the route never names
+    a grid the launch refuses); a partition off the source's rules is
+    refused; a shape without a plan raises before any launch, and a grid
+    past the resident CTAs returns an error from the launcher without
+    launching (the card stays usable)."""
+    import ctypes
+
+    from tennis_torch.ops import gru
+    from tennis_torch.ops._build import load_library
+
+    lib = load_library("gru_recurrence_grid")
+    smem = lib.gru_recurrence_grid_smem_bytes
+    smem.argtypes = [ctypes.c_int] * 6
+    smem.restype = ctypes.c_longlong
+    resident = lib.gru_recurrence_grid_resident_clusters
+    resident.argtypes = [ctypes.c_int, ctypes.c_longlong]
+    resident.restype = ctypes.c_int
+    for H in [*range(16, 1024, 13), 1023]:
+        for B in (1, 4, 8, 9, 32):
+            p = gru.grid_plan(H, B)
+            if p is None:
+                continue
+            assert smem(H, p.ctas, p.segments, p.seg_rows, p.rows, B) \
+                == p.smem_bytes
+            assert resident(p.rows, p.smem_bytes) * p.cluster \
+                >= p.ctas * p.chunks
+    p = gru.grid_plan(640, 4)
+    assert smem(640, 24, p.segments, p.seg_rows, p.rows, 4) == -1
+    assert smem(640, p.ctas, p.segments, p.seg_rows, 3, 4) == -1
+    assert smem(640, p.ctas, p.segments, p.seg_rows - 2, p.rows, 4) == -1
+    assert smem(640, p.ctas, p.segments, p.seg_rows, p.rows, 32) == -1
+    args, _ = _gru_inputs(dev, 4, 32, 640, [4] * 32)
+    before = dict(gru.gru_recurrence.variant_launches)
+    assert gru.grid_plan(640, 32) is None
+    with pytest.raises(ValueError, match="no grid holds"):
+        gru.gru_recurrence(*args, variant="grid")
+    small, _ = _gru_inputs(dev, 4, 4, 640, [4, 3, 2, 1])
+    with pytest.raises(ValueError, match="clusters of 16"):
+        gru.gru_recurrence(*small, variant="grid", cluster=8)
+    assert gru.gru_recurrence.variant_launches == before
+    gx, h0, wh, bh, vl = args
+    out = torch.empty((32, 4, 640), device=dev).transpose(0, 1)
+    hf = torch.empty((32, 640), device=dev)
+    workspace = torch.zeros(gru.COUNTER_STRIDE * 4 + 2 * 32 * 640,
+                            dtype=torch.int32, device=dev)
+    err = gru._launcher("grid")(
+        gx.data_ptr(), gx.stride(0), gx.stride(1), h0.data_ptr(), wh.data_ptr(),
+        wh.stride(0), wh.stride(1), bh.data_ptr(), vl.data_ptr(),
+        out.data_ptr(), out.stride(0), out.stride(1), hf.data_ptr(), 4, 32,
+        640, p.ctas, p.segments, p.seg_rows, 8, workspace.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err != 0
+    ys, _ = gru.gru_recurrence(*small, variant="grid")
+    torch.testing.assert_close(ys, gru.gru_recurrence_reference(*small)[0],
+                               rtol=0, atol=GRU_TOL)
+
+
 def test_rnn_layer_ragged_width_takes_the_general_kernel(dev):
     """A GRU layer of 300 (the 0102 captioner at --num_hidden 300) runs on
     the card through the general kernel inside the decode context."""
@@ -501,6 +620,27 @@ def test_rnn_layer_ragged_width_takes_the_general_kernel(dev):
         h, out = layer(x, vl)
         assert gru.gru_recurrence.variant_launches == {
             **before, "general": before["general"] + 1}
+    h_ref, out_ref = layer.cpu()(x.cpu(), vl.cpu())
+    torch.testing.assert_close(out.cpu(), out_ref, rtol=0, atol=GRU_TOL)
+    torch.testing.assert_close(h.cpu(), h_ref, rtol=0, atol=GRU_TOL)
+
+
+def test_rnn_layer_h640_takes_the_grid_kernel(dev):
+    """A GRU layer of 640 (the 0102 captioner at --num_hidden 640, its
+    transposed Wh) runs on the card through the grid kernel inside the
+    decode context."""
+    from tennis_torch.ops import gru
+    from tennis_torch.ops.rnn import RNNLayer, gru_decode
+
+    layer = RNNLayer("gru", 64, 640, generator=torch.Generator().manual_seed(0))
+    layer = layer.to(dev)
+    x = torch.randn(4, 20, 64, generator=torch.Generator().manual_seed(1)).to(dev)
+    vl = torch.tensor([20, 13, 5, 1], device=dev)
+    with torch.inference_mode(), gru_decode():
+        before = dict(gru.gru_recurrence.variant_launches)
+        h, out = layer(x, vl)
+        assert gru.gru_recurrence.variant_launches == {
+            **before, "grid": before["grid"] + 1}
     h_ref, out_ref = layer.cpu()(x.cpu(), vl.cpu())
     torch.testing.assert_close(out.cpu(), out_ref, rtol=0, atol=GRU_TOL)
     torch.testing.assert_close(h.cpu(), h_ref, rtol=0, atol=GRU_TOL)

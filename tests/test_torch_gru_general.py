@@ -49,8 +49,8 @@ def source_constants(name):
 
 
 def _plan_exists(variant, H, B):
-    return {"async": gru.gru_plan, "general": gru.general_plan}[variant](
-        H, B) is not None
+    return {"async": gru.gru_plan, "general": gru.general_plan,
+            "grid": gru.grid_plan}[variant](H, B) is not None
 
 
 @pytest.mark.parametrize("T,B", [(1, 1), (1, 4), (30, 64), (128, 4), (128, 8),
@@ -65,7 +65,7 @@ def test_every_shape_the_jax_kernel_takes_has_a_card_kernel(T, B):
             continue
         covered += 1
         variant = gru.gru_decode_route(T, B, H)
-        assert variant in ("async", "general"), (H, variant)
+        assert variant in ("async", "general", "grid"), (H, variant)
         assert _plan_exists(variant, H, B), H
         assert gru.gru_fits_smem(T, B, H)
     assert covered > 0
@@ -76,11 +76,19 @@ def test_every_shape_the_jax_kernel_takes_has_a_card_kernel(T, B):
 
 def test_route_keeps_the_async_kernel_where_it_takes_the_shape():
     """The 0102 width and every H the async kernel takes keep it (measured
-    fastest there); every other H up to 1023 goes to the general kernel."""
+    fastest there); every other H up to 1023 goes to the grid kernel where
+    the general one would stream Wh and the grid plan holds it, else to the
+    general kernel."""
     assert gru.gru_route(128, 4, 256) == "async"
     for B in (1, 4, 32):
         for H in range(1, 1024):
-            want = "async" if gru.gru_plan(H, B) is not None else "general"
+            if gru.gru_plan(H, B) is not None:
+                want = "async"
+            elif gru.general_plan(H, B).stream_rows > 0 \
+                    and gru.grid_plan(H, B) is not None:
+                want = "grid"
+            else:
+                want = "general"
             assert gru.gru_route(128, B, H) == want
 
 
@@ -292,9 +300,11 @@ def test_plain_version_matches_pallas_at_the_new_widths(H, B):
     ys_j, h_j = gru_recurrence_pallas(*map(jnp.asarray, (gx, h0, wh, bh, vl)),
                                       interpret=True)
     args = [torch.from_numpy(a) for a in (gx, h0, wh, bh, vl)]
-    assert gru.gru_route(T, B, H) == "general"
+    streams = gru.general_plan(H, B).stream_rows > 0
+    assert gru.gru_route(T, B, H) == ("grid" if streams else "general")
     for ys, h in (gru.gru_recurrence_reference(*args),
-                  gru.gru_recurrence(*args, variant="general")):
+                  gru.gru_recurrence(*args, variant="general"),
+                  gru.gru_recurrence(*args, variant="grid")):
         _close(ys, ys_j)
         _close(h, h_j)
     for b, n in enumerate(vl):

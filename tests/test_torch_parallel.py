@@ -134,12 +134,14 @@ def test_gru_route_where_the_reference_runs_its_kernel_raises_on_the_card(
         T, B, H):
     """Where the JAX package runs its kernel (``gru_fits_vmem``: H 640 at
     the 0102 encoder's T 128, B 4) the route does not take the plain
-    recurrence: it names a card kernel whose plan takes the shape (the
-    general kernel, past the async one's H), so its card launch does not
-    raise; the CPU path of that variant gives the plain version's answer."""
+    recurrence: it names a card kernel whose plan takes the shape (past the
+    async one's H, the grid kernel where the general one streams Wh, else
+    the general one), so its card launch does not raise; the CPU path of
+    that variant gives the plain version's answer."""
     assert gru_fits_vmem(T, B, H) and gru.gru_fits_smem(T, B, H)
     variant = gru.gru_decode_route(T, B, H)
-    assert variant == "general" and gru.general_plan(H, B) is not None
+    plan = {"general": gru.general_plan, "grid": gru.grid_plan}[variant]
+    assert plan(H, B) is not None
     rng = np.random.default_rng(H)
     args = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
             for s in ((T, B, 3 * H), (B, H), (H, 3 * H), (3 * H,))]
