@@ -285,7 +285,17 @@ sources under ``tennis_torch/csrc``. Phases, one line each:
    gathered through the group) at ``--num_hidden`` 1024, where no kernel
    takes H and ``gru_decode_route`` names the plain recurrence (no GRU
    launch, 3 layers counted in ``plain_routed``, the samples of the plain
-   decode exactly), and at 256 (3 GRU launches);
+   decode exactly), and at 256 (3 GRU launches); then ``[tp]``, the model
+   axis through the same group at a model axis of 1 (``make_mesh(1, 1)``):
+   the 0102 captioner's train step (batch 8 over 64 frames) through the
+   state the sharding rule places, bit for bit the same step without a
+   group; its batch-4 decode over 128 frames at the ``/caption`` lengths
+   with the memory sequence-sharded (the attention's MAX and SUM
+   combines over the one-rank model group) and the 11 kernels the rule
+   shards at a model axis of 2 placed as 1-of-1 blocks (column-parallel,
+   Wh gathered before the GRU kernel): 3 async GRU launches and no other,
+   the plain decode's samples and lengths, scores within 1e-5 relative;
+   the rule's sharded leaves at model axes 2 and 4 (11 each);
    then the group is destroyed;
 7f. ``[pretrained]`` (after ``[ddp]``, before ``[predict]``; no trace):
    the weight converter and ``--pretrained_npz``. A seeded
@@ -541,6 +551,25 @@ SKIPGRAM_PROBE = 8192  # pairs whose mean loss is taken before and after
 DDP_BATCH, DDP_STEPS, DDP_TIMED = 8, 2, 3
 DDP_LOSS_TOL, DDP_UPDATE_FACTOR, DDP_UPDATE_FLOOR = 1e-3, 2.0, 1e-2
 DDP_HIDDEN = (1024, 256)
+# [tp], inside [ddp]'s one-rank group at a model axis of 1: the 0102
+# captioner's train step (a TP_BATCH x TP_SRC_LEN batch, captions of
+# TP_TGT_LEN ids) and the batch-4 decode over 128 frames, each with the
+# sequence-sharded memory and the kernels the rule shards at a model axis
+# of 2 placed as 1-of-1 blocks (column-parallel layers, Wh gathered for
+# the recurrence and the GRU kernel): the step's loss within TP_LOSS_RTOL
+# of the plain step's and its update within TP_STEP_RTOL (relative L2 of
+# the difference over the plain update: the sharded softmax's and the
+# gathered layers' backward round apart from the whole ones', ~1e-7
+# relative, and Adam's first step, g / (|g| + 1e-8), takes that to ~4e-5
+# of a 1e-3 update where |g| is near 1e-8: 2.9e-5 on the CPU; a lost or
+# doubled gradient path moves it by ~0.1-1), the decode giving the plain decode's samples with scores within
+# TP_SCORE_TOL relative (a score sums ~70 steps' log-probabilities), and
+# every kind of model-axis collective run in each; the rule's sharded
+# leaves of the 0102 captioner at model axes 2 and 4 (TP_AXES)
+TP_BATCH, TP_SRC_LEN, TP_TGT_LEN = 8, 64, 16
+TP_SCORE_TOL = 1e-5
+TP_LOSS_RTOL, TP_STEP_RTOL = 1e-6, 1e-3
+TP_AXES = {2: 11, 4: 11}
 # [wide_decode]: --num_hidden widths past the async GRU kernel, and the
 # kernel the route names at each
 WIDE_HIDDEN = {640: "grid", 300: "general"}
@@ -5139,10 +5168,190 @@ def pixcap_driver_phase(dev, vocab, root):
     return dense_counts
 
 
+def tp_inputs(rng):
+    """The 0102 captioner's flags, vocabulary size, seeded weights (flax
+    naming) and one train batch for ``[tp]``."""
+    from tennis_torch.bridge import to_flax
+    from tennis_torch.train_gnmt import build_model, parse_args
+
+    args = parse_args(CAPTION_ARGV)
+    n_vocab = len(caption_vocab())
+    tree = random_flax_tree(to_flax(build_model(args, n_vocab, FEAT_DIM)),
+                            rng)
+    src = rng.standard_normal((TP_BATCH, TP_SRC_LEN, FEAT_DIM)) \
+        .astype(np.float32)
+    src_vl = rng.integers(TP_SRC_LEN // 4, TP_SRC_LEN + 1, TP_BATCH) \
+        .astype(np.float32)
+    tgt_vl = rng.integers(4, TP_TGT_LEN + 1, TP_BATCH).astype(np.float32)
+    src_vl[0], tgt_vl[0] = TP_SRC_LEN, TP_TGT_LEN
+    src[np.arange(TP_SRC_LEN)[None, :] >= src_vl[:, None]] = 0.0
+    tgt = rng.integers(4, n_vocab, (TP_BATCH, TP_TGT_LEN)).astype(np.int32)
+    return args, n_vocab, tree, (src, tgt, src_vl, tgt_vl)
+
+
+def tp_leaves(model):
+    """The names of the parameters the rule shards at a model axis of 2."""
+    from tennis_torch.parallel.mesh import World
+    from tennis_torch.parallel.sharding_rules import param_shardings
+
+    return [n for n, s in param_shardings(World(size=2, model_size=2),
+                                          model).items() if s.sharded]
+
+
+def tp_train_step(dev, args, n_vocab, tree, batch, world=None):
+    """One captioner train step (the driver's dropout, clip and Adam) from
+    ``tree``; with ``world``, through the sharded state: the leaves the
+    rule shards at a model axis of 2 placed as 1-of-1 blocks
+    (column-parallel forward, the output gather's and ``to_model``'s
+    backward, Wh gathered whole for the recurrence) and the memory
+    sequence-sharded (the attention's combines and ``take_block``'s
+    backward), the clip's norm summed over the model group. Returns the
+    loss, the step's update of each parameter and the model-axis
+    collectives the step issued, by kind."""
+    from tennis_torch.bridge import load_flax
+    from tennis_torch.models.gnmt import masked_ce_loss
+    from tennis_torch.parallel import distributed as D
+    from tennis_torch.parallel import train_step as ts
+    from tennis_torch.parallel.sharding_rules import place_blocks
+    from tennis_torch.train_gnmt import build_model
+
+    model = load_flax(build_model(args, n_vocab, FEAT_DIM), tree).to(dev)
+    if world is not None:
+        place_blocks(model, world, tp_leaves(model))
+        model.mem_sharding = world
+    state = ts.create_seq2seq_state(model, ts.adam_with_clip(args.clip),
+                                    args.lr, world=world)
+    step = ts.make_seq2seq_train_step(state, masked_ce_loss)
+    before = [p.detach().clone() for p in model.parameters()]
+    D.model_collectives.clear()
+    loss = step(*(torch.from_numpy(x).to(dev) for x in batch), SEED + 20)
+    torch.cuda.synchronize()
+    return (loss.item(), [p.detach() - b for p, b in
+                          zip(model.parameters(), before)],
+            dict(D.model_collectives))
+
+
+def tp_checks(dev, world, tp_in, plain_step, rng):
+    """``[tp]``: the model axis through the one-rank group at a model axis
+    of 1 (``world``, from ``make_mesh(1, 1)``). The captioner's train step
+    through the sharded state (``tp_train_step``: the rule's leaves at a
+    model axis of 2 as 1-of-1 blocks, the memory sequence-sharded, every
+    model-axis forward and backward collective and the clip's norm over
+    the model group) against ``plain_step`` (the same step without a
+    group) within TP_LOSS_RTOL and TP_STEP_RTOL; the batch-4 decode over 128 frames, placed the
+    same way (Wh gathered for the GRU kernel, the attention's MAX and SUM
+    combines over the one-rank model group), its GRU counts set to 0 just
+    before and read just after, against the plain decode; the model-axis
+    collectives of each, counted by kind (each kind must run); the rule's
+    sharded leaves of the 0102 captioner at model axes 2 and 4. Returns
+    (ok, GRU launches by variant)."""
+    from tennis_torch.bridge import load_flax
+    from tennis_torch.ops import gru
+    from tennis_torch.parallel import distributed as D
+    from tennis_torch.parallel.mesh import World
+    from tennis_torch.parallel.sharding_rules import param_shardings, \
+        place_blocks
+    from tennis_torch.train_gnmt import build_model
+    from tennis_torch.translation import BeamSearchTranslator
+
+    t0 = time.perf_counter()
+    args, n_vocab, tree, _ = tp_in
+    loss, update, step_collectives = tp_train_step(dev, *tp_in, world=world)
+    plain_loss, plain_update, _ = plain_step
+    step_equal = loss == plain_loss and all(
+        torch.equal(a, b) for a, b in zip(update, plain_update))
+    step_max_abs = max((a - b).abs().max().item()
+                       for a, b in zip(update, plain_update))
+    step_rel = (sum(((a.double() - b.double()) ** 2).sum()
+                    for a, b in zip(update, plain_update))
+                / sum((b.double() ** 2).sum() for b in plain_update)) \
+        .sqrt().item()
+    loss_rel = abs(loss - plain_loss) / abs(plain_loss)
+    step_ok = loss_rel <= TP_LOSS_RTOL and step_rel <= TP_STEP_RTOL
+    del update, plain_update
+
+    def model():
+        return load_flax(build_model(args, n_vocab, FEAT_DIM), tree) \
+            .to(dev).eval()
+
+    def translator(m, w=None):
+        vocab = caption_vocab()
+        return BeamSearchTranslator(
+            m, vocab[vocab.bos_token], vocab[vocab.eos_token],
+            args.beam_size, args.lp_alpha, args.lp_k, args.tgt_max_len + 20,
+            world=w)
+
+    sharded = model()
+    leaves = {m: sum(s.sharded for s in param_shardings(
+        World(size=m, model_size=m), sharded).values()) for m in TP_AXES}
+    src = rng.standard_normal((CAPTION_BATCH, SRC_MAX_LEN, FEAT_DIM)) \
+        .astype(np.float32)
+    vl = np.array(CAPTION_LENGTHS, np.int32)
+    with torch.inference_mode():
+        want = translator(model()).build_decoder(CAPTION_BATCH)(
+            torch.from_numpy(src).to(dev), torch.from_numpy(vl).to(dev))
+    want = [t.cpu().numpy() for t in want]
+    names = tp_leaves(sharded)
+    place_blocks(sharded, world, names)
+    sharded.mem_sharding = world
+    # the decoder steps, and the collectives issued before the first
+    decoder_step, steps = sharded.decode_step, {"n": 0, "before": 0}
+
+    def counted_step(*a, **k):
+        if not steps["n"]:
+            steps["before"] = sum(D.model_collectives.values())
+        steps["n"] += 1
+        return decoder_step(*a, **k)
+
+    sharded.decode_step = counted_step
+    reset_kernel_counts()
+    gru.gru_recurrence.plain_routed = 0
+    D.model_collectives.clear()
+    t1 = time.perf_counter()
+    samples, scores, lengths = translator(sharded, world).translate(src, vl)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t1) * 1e3
+    decode_collectives = dict(D.model_collectives)
+    in_loop = sum(decode_collectives.values()) - steps["before"]
+    by_variant = dict(gru.gru_recurrence.variant_launches)
+    routed = gru.gru_recurrence.plain_routed
+    score_err = float(np.abs(scores - want[1]).max())
+    score_rel = float((np.abs(scores - want[1]) / np.abs(want[1])).max())
+    decode_ok = (by_variant["async"] == 3 and sum(by_variant.values()) == 3
+                 and routed == 0 and np.array_equal(samples, want[0])
+                 and np.array_equal(lengths, want[2])
+                 and score_rel <= TP_SCORE_TOL)
+    kinds = {"all_gather", "sum", "max"}
+    axis_ran = all(c.get(k, 0) > 0 for c in (step_collectives,
+                                             decode_collectives)
+                   for k in kinds)
+    ok = step_ok and decode_ok and axis_ran and leaves == TP_AXES
+    log("tp", world=[world.data_size, world.model_size], batch=TP_BATCH,
+        src_len=TP_SRC_LEN, tgt_len=TP_TGT_LEN, loss=loss,
+        plain_loss=plain_loss, loss_rel_vs_plain=loss_rel,
+        loss_rtol=TP_LOSS_RTOL, step_bit_equal_plain=step_equal,
+        step_update_rel_l2_vs_plain=step_rel, step_update_rtol=TP_STEP_RTOL,
+        step_max_abs_param_vs_plain=step_max_abs,
+        step_model_collectives=step_collectives,
+        sharded_leaves_by_axis=leaves, blocks_placed=len(names),
+        decode_model_collectives=decode_collectives,
+        decoder_steps=steps["n"],
+        model_collectives_per_decoder_step=in_loop / max(steps["n"], 1),
+        every_collective_kind_ran=axis_ran,
+        decode_gru_launches_by_variant=by_variant, plain_routed=routed,
+        samples_equal_plain_decode=bool(np.array_equal(samples, want[0])),
+        lengths_equal_plain_decode=bool(np.array_equal(lengths, want[2])),
+        max_abs_score_vs_plain=score_err, max_rel_score_vs_plain=score_rel,
+        score_rtol=TP_SCORE_TOL,
+        decode_ms=decode_ms, wall_s=time.perf_counter() - t0, ok=ok)
+    return ok, by_variant
+
+
 def ddp_phase(dev):
     """Data parallelism on the card at world size 1 (``[ddp]``): the
     data-parallel train step, a sharded evaluation forward and a sharded
-    decode past the GRU kernels' H, through a one-rank NCCL group.
+    decode past the GRU kernels' H, through a one-rank NCCL group; then
+    the model axis at 1 through the same group (``[tp]``, ``tp_checks``).
     Returns the dense-layer and GRU kernel launches of its main-path
     calls."""
     import argparse
@@ -5204,6 +5413,8 @@ def ddp_phase(dev):
     spread = distance(again, plain, init)
     plain_ms = step_ms(plain_step)
     del plain_step
+    tp_in = tp_inputs(np.random.default_rng(SEED + 20))
+    tp_plain = tp_train_step(dev, *tp_in)
     gru.gru_recurrence.plain_routed = 0
     D.initialize_multihost(f"127.0.0.1:{D.free_port()}", 1, 0, "cuda", 0)
     try:
@@ -5301,11 +5512,17 @@ def ddp_phase(dev):
                     d["samples"][:, 0], d["plain"][0][:, 0])),
                 max_abs_score_vs_plain=d["max_abs_score_vs_plain"],
                 decode_ms=d["decode_ms"], ok=ok)
+
+        # the model axis at 1 through the same group
+        tp_ok, tp_gru = tp_checks(dev, D.make_mesh(1, 1, dev), tp_in,
+                                  tp_plain, rng)
+        for v in gru.VARIANTS:
+            gru_launches[v] += tp_gru[v]
     finally:
         D.shutdown()
     log("ddp_phase", wall_s=time.perf_counter() - t_phase,
         group_destroyed=not D.grouped())
-    if not (train_ok and eval_ok and decode_ok) or D.grouped():
+    if not (train_ok and eval_ok and decode_ok and tp_ok) or D.grouped():
         raise SystemExit("the data-parallel phase failed its gates")
     return launches, gru_launches
 
@@ -5676,9 +5893,10 @@ def gru_entry(name, variant, rows, launches, max_abs):
                 f"H {H}, lengths {lengths} ({key}); launches count the "
                 + (f"decodes at --num_hidden {H} of [wide_decode]" if wide else
                    "/caption batches served, the per-epoch and "
-                   "evaluate_gnmt decodes of [caption_driver] and the "
+                   "evaluate_gnmt decodes of [caption_driver], the "
                    "--pallas_gru exported program's batches in "
-                   "[export_caption]")
+                   "[export_caption] and the decodes of [ddp] at 256 and of "
+                   "[tp] (Wh gathered over the model group)")
                 + f"; library_ms (cuDNN nn.GRU) and layer_ms (the port) "
                 f"cover the whole layer from {FEAT_DIM} features at full "
                 f"length",

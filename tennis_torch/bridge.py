@@ -34,11 +34,21 @@ learning rate).
 A leaf that matches no rule raises, and loading the result with
 ``load_state_dict`` (strict) raises on a key the module lacks or leaves
 unset.
+
+Under a model axis (``parallel.sharding_rules.place_blocks``) a
+column-sharded ``Linear`` holds this rank's block of weight rows. The
+trees stay whole: ``to_flax`` and ``state_to_flax`` gather the blocks
+(its Adam moments and momentum traces too) over the model group, a
+collective that every model rank reaches, and ``load_flax`` and
+``state_from_flax`` take this rank's block of each whole leaf. A file
+written under a model axis is then the one the plain run writes.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from tennis_torch.parallel.distributed import gather_blocks
 
 _PARAM_LEAVES = ("kernel", "scale", "bias")
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
@@ -103,6 +113,44 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", torch.float32, copy=True).numpy()
 
 
+def param_leaves(module: torch.nn.Module):
+    """``(torch name, owning module, leaf, flax path)`` of every parameter
+    of ``module``, the flax path in ``to_flax``'s naming (a ``Linear``'s
+    ``weight`` is ``(..., "kernel")``)."""
+    for prefix, sub in module.named_modules():
+        mod = prefix.split(".") if prefix else []
+        for leaf, _ in sub.named_parameters(recurse=False):
+            yield (".".join(mod + [leaf]), sub, leaf,
+                   tuple(mod + [_param_leaf(sub, leaf, mod)]))
+
+
+def _block_world(sub, leaf):
+    """The model world of a column-sharded ``Linear`` weight, else None."""
+    return getattr(sub, "tp_world", None) if leaf == "weight" else None
+
+
+def _whole(sub, leaf, t: torch.Tensor) -> torch.Tensor:
+    """``t`` (a parameter, or a tensor of its shape) whole: the model
+    ranks' blocks of a column-sharded weight gathered (a collective)."""
+    world = _block_world(sub, leaf)
+    if world is None:
+        return t
+    with torch.no_grad():
+        return gather_blocks(t.detach(), world, 0)
+
+
+def _blocks(module: torch.nn.Module, state: dict) -> dict:
+    """``state`` (torch name -> whole tensor) with each column-sharded
+    weight of ``module`` cut to this rank's block of rows."""
+    for name, sub, leaf, _ in param_leaves(module):
+        world = _block_world(sub, leaf)
+        if world is not None and name in state:
+            n = state[name].shape[0] // world.model_size
+            state[name] = state[name][world.model_rank * n:
+                                      (world.model_rank + 1) * n]
+    return state
+
+
 def _flax_trees(module: torch.nn.Module, value=None):
     """(params, batch_stats) flax trees of ``module``'s tensors, or with
     ``value(name, parameter)`` in place of each parameter (a tensor, or None
@@ -123,14 +171,15 @@ def _flax_trees(module: torch.nn.Module, value=None):
                 raise KeyError(f"no flax counterpart for "
                                f"{'.'.join(mod + [leaf])}")
             put(stats, mod + [stat_names[leaf]], _host(t))
-        for leaf, t in sub.named_parameters(recurse=False):
-            if value is not None:
-                t = value(".".join(mod + [leaf]), t)
-                if t is None:
-                    put(params, mod + [_param_leaf(sub, leaf, mod)], {})
-                    continue
-            put(params, mod + [_param_leaf(sub, leaf, mod)],
-                _param_array(sub, leaf, _host(t)))
+    for name, sub, leaf, path in param_leaves(module):
+        t = getattr(sub, leaf)
+        if value is not None:
+            t = value(name, t)
+            if t is None:
+                put(params, path, {})
+                continue
+        put(params, path,
+            _param_array(sub, leaf, _host(_whole(sub, leaf, t))))
     return params, stats
 
 
@@ -236,7 +285,8 @@ def _seq2seq_from_flax(state, tree: dict) -> None:
     moments = {}
     if opt.inner is not None:
         for key in ("mu", "nu"):
-            moments[key] = from_flax({"params": adam[key]})
+            moments[key] = _blocks(state.model,
+                                   from_flax({"params": adam[key]}))
             want = getattr(opt.inner, key)
             if set(moments[key]) != set(want):
                 raise KeyError(f"Adam's {key} differs from the model's: "
@@ -318,7 +368,8 @@ def state_from_flax(state, tree: dict) -> None:
         chain = inner["train"]["inner_state"]
     if set(chain) != {"0", "1"} or set(chain["1"]) != {"0", "1"}:
         raise KeyError(f"not an SGD optimizer state: keys {sorted(chain)}")
-    trace = from_flax({"params": chain["1"]["0"]["trace"]})
+    trace = _blocks(state.model,
+                    from_flax({"params": chain["1"]["0"]["trace"]}))
     if set(trace) != set(state.opt_state.trace):
         raise KeyError(f"the momentum traces differ from the model's: "
                        f"{sorted(set(trace) ^ set(state.opt_state.trace))}")
@@ -336,6 +387,8 @@ def state_from_flax(state, tree: dict) -> None:
 
 
 def load_flax(module: torch.nn.Module, variables: dict) -> torch.nn.Module:
-    """Load a flax tree into ``module`` (strict: every key on both sides)."""
-    module.load_state_dict(from_flax(variables, module), strict=True)
+    """Load a flax tree into ``module`` (strict: every key on both sides);
+    a column-sharded weight takes this rank's block."""
+    module.load_state_dict(_blocks(module, from_flax(variables, module)),
+                           strict=True)
     return module

@@ -104,7 +104,7 @@ def run_rank(args: argparse.Namespace):
     loader = DataLoader(
         test_set, batch_size=host_batch_slice(args.batch_size),
         shuffle=False, num_workers=train_driver._num_workers(args, 8),
-        num_shards=world.size, shard_id=world.rank,
+        num_shards=world.data_size, shard_id=world.data_rank,
         transform=None if feats else
         train_driver._geometry_transform(args, False))
 

@@ -42,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tennis_torch.ops.dense_block import densenet_features, layer_operands, \
     fold_bn
+from tennis_torch.parallel.distributed import data_group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,9 +108,10 @@ class _BatchNormReLU(torch.autograd.Function):
     path through them, and no collective runs.
 
     Under a process group (data parallelism) the statistics are the
-    **global** batch's, as under GSPMD in the JAX package: the forward
-    all-reduces the per-channel sums of x and x^2 and the count, in at
-    least f32, and takes ``mean = sum / count``, ``E[x^2] = sum_sq /
+    **global** batch's, as under GSPMD in the JAX package (summed over the
+    data axis: the model ranks of a data index hold the same rows): the
+    forward all-reduces the per-channel sums of x and x^2 and the count,
+    in at least f32, and takes ``mean = sum / count``, ``E[x^2] = sum_sq /
     count``; the backward all-reduces its two per-channel sums through the
     statistics (of the gradient, and of the gradient times x), so that x's
     gradient is that of the sum of every rank's loss, while weight and bias
@@ -130,7 +132,7 @@ class _BatchNormReLU(torch.autograd.Function):
             sums = torch.cat([xf.sum(dims), xf.square().sum(dims),
                               xf.new_full((1,), n)])
             del xf
-            dist.all_reduce(sums)
+            dist.all_reduce(sums, group=data_group())
             n = sums[-1]
             mean = sums[:C] / n
             var = sums[C:2 * C] / n - mean * mean
@@ -181,7 +183,7 @@ class _BatchNormReLU(torch.autograd.Function):
             if ctx.sync:  # the statistics' gradient over every rank's rows
                 C = d_shift.shape[0]
                 sums = torch.cat([d_shift, gx])
-                dist.all_reduce(sums)
+                dist.all_reduce(sums, group=data_group())
                 all_shift = sums[:C]
                 all_mul = sums[C:] - mean * all_shift
             d_mean = -mul * all_shift

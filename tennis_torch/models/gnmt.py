@@ -33,6 +33,15 @@ as in the JAX package. In ``train()`` mode the backbone runs its
 train-mode forward (batch statistics over all B·T frames, padded steps
 included, and the running statistics updated); in ``eval()`` mode its eval
 forward, on the card every DenseNet dense layer in a dense-layer kernel.
+
+``mem_sharding`` (a model world from ``parallel.distributed.make_mesh``;
+the counterpart of the JAX ``NMTModel(mem_sharding=)``) makes the
+attention memory sequence-parallel: ``init_decoder_state`` cuts the
+encoder output and its mask to this model rank's block of the time axis
+(padded with masked steps where T does not divide, as GSPMD pads), so
+that both the teacher-forced decode and the beam search's steps attend
+over the block and combine the blocks over the model group
+(``ops.attention``).
 """
 from __future__ import annotations
 
@@ -46,6 +55,7 @@ from tennis_torch.data.transforms import device_augment, device_prepare
 from tennis_torch.ops.attention import LuongAttention
 from tennis_torch.ops.masking import sequence_mask
 from tennis_torch.ops.rnn import BiRNN, RNNLayer, dense, make_cell
+from tennis_torch.parallel.distributed import take_block
 
 
 def dropout(x, rate: float, training: bool,
@@ -192,21 +202,41 @@ class GNMTDecoder(nn.Module):
         return outputs, (carry[0], carry[1], mem_value, mem_masks)
 
 
+def memory_block(mem_value, valid_length, world):
+    """This model rank's block of the time axis of the memory (B, T, H)
+    and of its mask (B, T): T padded with masked steps up to a multiple
+    of the model size. The block's gradient is gathered back over the
+    model group, so the encoder's backward sees the whole memory's."""
+    B, T, _ = mem_value.shape
+    size = world.model_size
+    padded = -(-T // size) * size
+    vl = (torch.full((B,), T, device=mem_value.device)
+          if valid_length is None else valid_length.to(mem_value.device))
+    mask = torch.arange(padded, device=mem_value.device)[None, :] \
+        < vl[:, None]
+    mem = F.pad(mem_value, (0, 0, 0, padded - T))
+    n = padded // size
+    return (take_block(mem, world, 1),
+            mask[:, world.model_rank * n:(world.model_rank + 1) * n])
+
+
 class NMTModel(nn.Module):
     """src_embed -> encoder -> decoder -> tgt_proj, with a token-embedding
     tgt_embed. ``src_embed`` is None on the features path (the source is the
     encoder's input as it is) or a backbone over frames on the pixels path
-    (the TimeDistributed CNN of the reference)."""
+    (the TimeDistributed CNN of the reference). ``mem_sharding`` (a model
+    world, or None) shards the attention memory's time axis."""
 
     def __init__(self, vocab_size: int, encoder: GNMTEncoder,
                  decoder: GNMTDecoder, embed_size: int = 100,
                  hidden_size: int = 128,
                  generator: torch.Generator | None = None,
-                 src_embed: nn.Module | None = None):
+                 src_embed: nn.Module | None = None, mem_sharding=None):
         super().__init__()
         self.src_embed = src_embed
         self.encoder = encoder
         self.decoder = decoder
+        self.mem_sharding = mem_sharding
         self.tgt_embed = nn.Embedding(vocab_size, embed_size)
         with torch.no_grad():  # flax nn.Embed: variance 1/embed_size
             self.tgt_embed.weight.normal_(0.0, 1.0 / math.sqrt(embed_size),
@@ -245,9 +275,27 @@ class NMTModel(nn.Module):
         return self.encoder(self.embed_src(src, augment, src_grad),
                             valid_length, generator)
 
+    @property
+    def mem_sharding(self):
+        """The model world that shards the memory's time axis, or None;
+        the decoder's attention reads it."""
+        return self.decoder.step.attention.mem_sharding
+
+    @mem_sharding.setter
+    def mem_sharding(self, world):
+        self.decoder.step.attention.mem_sharding = world
+
     def init_decoder_state(self, encoder_outputs, src_valid_length=None):
         mem_value, enc_states = encoder_outputs
-        return self.decoder.init_state(enc_states, mem_value, src_valid_length)
+        world = self.mem_sharding
+        if world is None:
+            return self.decoder.init_state(enc_states, mem_value,
+                                           src_valid_length)
+        B, _, H = mem_value.shape
+        attention_vec = torch.zeros(B, H, dtype=mem_value.dtype,
+                                    device=mem_value.device)
+        mem, mask = memory_block(mem_value, src_valid_length, world)
+        return tuple(enc_states), attention_vec, mem, mask
 
     def decode_step(self, step_tokens, states):
         """Beam-search step: token ids (B,) -> (logits (B, V), new states)."""

@@ -180,6 +180,9 @@ def beam_search(decode_step: Callable, init_states: Any, batch_size: int,
     seqs, scores, finished, lengths, states = _init(
         init_states, batch_size, beam_size, bos_id, eos_id, max_length + 2)
     t = 0
+    # under a sequence-sharded memory the model ranks of a data index run
+    # this loop in lockstep: their logits come from all-reduced values,
+    # alike on each, so finished.all() agrees among them
     while t < max_length and not bool(finished.all()):
         seqs, scores, finished, lengths, states = _search_step(
             decode_step, torch.tensor(t, device=seqs.device), seqs, scores,

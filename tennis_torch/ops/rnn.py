@@ -28,6 +28,15 @@ matmul. Then, as in the JAX package, the recurrence takes one of two paths:
 
 The context decides the path; no path catches a kernel failure.
 
+Under a model axis (``parallel.sharding_rules.place_blocks``) a
+:class:`Dense` may hold a column block of its flax kernel (a block of
+weight rows) and runs column-parallel (:func:`column_parallel`): this
+rank's columns of the product, all-gathered over the model group, then the
+whole bias. A recurrence takes its ``h2h`` kernel whole instead, gathered
+once a layer (:func:`whole_weight`), the plain recurrence in training and
+the GRU kernels in decode alike, as GSPMD hands the Pallas call a gathered
+operand; its backward keeps this rank's block of the whole ``dWh``.
+
 :class:`RNNLayer` and :class:`BiRNN` compute in a ``dtype`` (f32 by
 default, the GNMT's), with f32 parameters: in another dtype (the CNN-RNN's
 bf16) the rounding points are the flax modules', i.e. each projection's
@@ -45,6 +54,7 @@ from torch import nn
 from tennis_torch.ops import gru as gru_ops
 from tennis_torch.ops.gru import gru_recurrence
 from tennis_torch.ops.masking import reverse_sequence, sequence_mask
+from tennis_torch.parallel.distributed import gather_blocks, to_model
 
 LSTM_FORGET_BIAS = 1.0  # added at run time (reference gnmt.py:410)
 
@@ -63,25 +73,78 @@ def gru_decode(enabled: bool = True):
         _GRU_DECODE.reset(token)
 
 
+def column_parallel(x, weight, bias, world, dtype=None):
+    """``x @ W^T + b`` from this rank's block of ``W``'s rows: the local
+    product, its columns all-gathered over the model group (whose backward
+    keeps this rank's columns of the gradient), then the whole bias. ``x``
+    enters through ``to_model``, so that its gradient sums the blocks'
+    parts. In ``dtype`` (other than f32) the product and the bias sum are
+    rounded to it, as :func:`_affine` rounds them."""
+    x = to_model(x, world)
+    if dtype is None:
+        y = torch.nn.functional.linear(x, weight)
+    elif dtype == torch.float32:
+        y = torch.nn.functional.linear(x.float(), weight)
+    else:
+        y = x.to(dtype) @ weight.t().to(dtype)
+        bias = None if bias is None else bias.to(dtype)
+    y = gather_blocks(y, world, -1)
+    return y if bias is None else y + bias
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` that may hold a column block of its flax kernel:
+    ``tp_world`` is None (the weight whole, ``nn.Linear``'s forward) or
+    the model world whose ranks hold its blocks of rows
+    (:func:`column_parallel`). ``out_features`` stays the whole width."""
+    tp_world = None
+
+    def forward(self, x):
+        if self.tp_world is None:
+            return super().forward(x)
+        return column_parallel(x, self.weight, self.bias, self.tp_world)
+
+
 def dense(in_features: int, out_features: int, bias: bool = True,
-          generator: torch.Generator | None = None) -> nn.Linear:
+          generator: torch.Generator | None = None) -> Dense:
     """flax ``nn.Dense`` initialisation: lecun-normal kernel, zero bias."""
     from tennis_torch.models.backbones.densenet import lecun_normal_
 
-    layer = nn.Linear(in_features, out_features, bias=bias)
+    layer = Dense(in_features, out_features, bias=bias)
     lecun_normal_(layer.weight, in_features, generator)
     if bias:
         nn.init.zeros_(layer.bias)
     return layer
 
 
-def _affine(layer: nn.Linear, dtype):
+def whole_weight(layer: nn.Linear) -> torch.Tensor:
+    """``layer``'s weight whole: a column-sharded one's blocks gathered
+    over the model group, whose backward keeps this rank's block of the
+    gradient (no sum over the group: each model rank computed the whole
+    gradient alike)."""
+    world = getattr(layer, "tp_world", None)
+    if world is None:
+        return layer.weight
+    return gather_blocks(layer.weight, world, 0)
+
+
+def _affine(layer: nn.Linear, dtype, whole: bool = False):
     """``x -> layer(x)`` in ``dtype``: in f32 as ``nn.Linear`` computes it;
     in another dtype as flax's ``Dense(dtype, param_dtype=f32)`` rounds it,
-    the product rounded to the dtype and then the bias sum."""
+    the product rounded to the dtype and then the bias sum. A
+    column-sharded layer runs column-parallel, or with ``whole`` (a
+    recurrence's ``h2h``, applied every step) on its weight gathered
+    once."""
+    world = getattr(layer, "tp_world", None)
+    if world is not None and not whole:
+        return lambda x: column_parallel(x, layer.weight, layer.bias, world,
+                                         dtype)
     if dtype == torch.float32:
-        return lambda x: layer(x.float())
-    w, b = layer.weight.t().to(dtype), layer.bias.to(dtype)
+        if world is None:
+            return lambda x: layer(x.float())
+        w = whole_weight(layer)
+        return lambda x: torch.nn.functional.linear(x.float(), w, layer.bias)
+    w, b = whole_weight(layer).t().to(dtype), layer.bias.to(dtype)
     return lambda x: x.to(dtype) @ w + b
 
 
@@ -246,8 +309,8 @@ class RNNLayer(nn.Module):
               else valid_length.to(inputs.device, torch.int32))
         h2h = self.recurrence.h2h
         if self.cell_type == "lstm":
-            ys, final = _lstm_recurrence(gx, _affine(h2h, dt), initial_state,
-                                         vl)
+            ys, final = _lstm_recurrence(gx, _affine(h2h, dt, whole=True),
+                                         initial_state, vl)
         elif _GRU_DECODE.get():
             if torch.is_grad_enabled() and any(
                     t.requires_grad for t in (gx, initial_state, h2h.weight)):
@@ -256,16 +319,17 @@ class RNNLayer(nn.Module):
                     "be required inside gru_decode()")
             if gru_ops.gru_decode_route(T, B, H) == "plain":
                 gru_ops.gru_recurrence.plain_routed += 1
-                ys, final = _gru_recurrence(gx, _affine(h2h, dt),
+                ys, final = _gru_recurrence(gx, _affine(h2h, dt, whole=True),
                                             initial_state, vl)
             else:
                 # the kernel runs in f32, as the JAX package's Pallas path
                 ys, final = gru_recurrence(gx.float(), initial_state.float(),
-                                           h2h.weight.t(), h2h.bias, vl)
+                                           whole_weight(h2h).t(), h2h.bias,
+                                           vl)
                 ys, final = ys.to(dt), final.to(dt)
         else:
-            ys, final = _gru_recurrence(gx, _affine(h2h, dt), initial_state,
-                                        vl)
+            ys, final = _gru_recurrence(gx, _affine(h2h, dt, whole=True),
+                                        initial_state, vl)
         ys = ys.transpose(0, 1)
         if self.reverse:
             ys = reverse_sequence(ys, valid_length, axis=1)

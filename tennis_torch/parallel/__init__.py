@@ -1,2 +1,3 @@
-"""Training steps of the port and its data-parallel world: one process
-per GPU, joined by ``torch.distributed``."""
+"""Training steps of the port and its ``(data, model)`` world: one process
+per GPU, joined by ``torch.distributed``; the tensor-parallel sharding
+rules."""

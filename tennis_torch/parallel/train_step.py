@@ -19,6 +19,17 @@ no update, no weight decay and no trace (optax's ``multi_transform`` with
 ``set_to_zero``), while its BN still runs in train mode and moves its
 running statistics, as the JAX step does.
 
+Under a model axis (``world`` given to :func:`create_train_state` or
+:func:`create_seq2seq_state`, the counterpart of the JAX
+``create_train_state(mesh=)`` with ``state_shardings``) the rule's
+kernels are placed as column blocks (``sharding_rules.place_blocks``)
+before the optimizer state is made, so each trace and moment is a block
+where its parameter is; the gradients are averaged over the data axis
+only (the model ranks of a data index hold the same rows), the rows and
+draws follow the data index, and the clip's global norm sums the squares
+of each sharded gradient's blocks over the model group and counts each
+whole gradient once.
+
 The captioner's ``--freeze_backbone`` is the JAX driver's
 ``chain(masked(set_to_zero, src_embed), clip, adam)``: the ``src_embed``
 gradients are zero before the global-norm clip, so they leave the norm,
@@ -37,8 +48,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tennis_torch.parallel.distributed import current_world
+from tennis_torch.parallel.distributed import current_world, data_group, \
+    model_group
 from tennis_torch.parallel.mesh import World
+from tennis_torch.parallel.sharding_rules import block_worlds, place_blocks
 
 
 def piecewise_constant_schedule(init_value: float,
@@ -121,8 +134,17 @@ class TrainState:
                         and self.frozen in n.split("."))}
 
 
+def _place(model: torch.nn.Module, world: World | None) -> None:
+    if world is not None:
+        place_blocks(model, world)
+
+
 def create_train_state(model: torch.nn.Module, tx: SGD,
-                       freeze_backbone: bool = False) -> TrainState:
+                       freeze_backbone: bool = False,
+                       world: World | None = None) -> TrainState:
+    """The classifier's train state; with ``world``, its parameters
+    placed by the sharding rule first (the JAX ``mesh=``)."""
+    _place(model, world)
     state = TrainState(model, tx, None, 0, freeze_backbone)
     state.opt_state = tx.init(state.trained)
     return state
@@ -146,15 +168,18 @@ BUCKET_BYTES = 32 << 20  # gradient bytes per all-reduce
 
 
 def all_reduce_mean(grads: list, world: World, loss: torch.Tensor):
-    """The gradients and the loss averaged over the world: summed in flat
-    buckets of up to ``BUCKET_BYTES`` per dtype (the loss rides in the
-    first f32 one), then divided by the world size. Returns ``(grads,
-    loss)``; without a process group, as given."""
+    """The gradients and the loss averaged over the data axis: summed over
+    this rank's data group in flat buckets of up to ``BUCKET_BYTES`` per
+    dtype (the loss rides in the first f32 one), then divided by the data
+    size. A sharded gradient is this rank's block, averaged with the same
+    block of every data index. Returns ``(grads, loss)``; without a
+    process group, as given."""
     if not world.grouped:
         return grads, loss
     import torch.distributed as dist
     from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
+    group = data_group(world)
     items = [loss.detach().reshape(1).float()] + list(grads)
     out = [None] * len(items)
     by_dtype: dict = {}
@@ -168,8 +193,8 @@ def all_reduce_mean(grads: list, world: World, loss: torch.Tensor):
             if size >= BUCKET_BYTES or j == len(idx) - 1:
                 tensors = [items[k] for k in bucket]
                 flat = _flatten_dense_tensors(tensors)
-                dist.all_reduce(flat)
-                flat.div_(world.size)
+                dist.all_reduce(flat, group=group)
+                flat.div_(world.data_size)
                 for k, t in zip(bucket, _unflatten_dense_tensors(flat,
                                                                  tensors)):
                     out[k] = t
@@ -178,15 +203,18 @@ def all_reduce_mean(grads: list, world: World, loss: torch.Tensor):
 
 
 def stripe_rows(world: World, n_local: int, device) -> tuple | None:
-    """Where this rank's rows sit in the global batch, as the world-striped
-    loader deals them: ``(global batch, positions)``, position ``rank + i *
-    size`` for local row i; None without a process group. A preprocess
-    draws its per-row randomness for the global batch and takes these
-    rows, so that a sample gets the draw of its single-process row."""
+    """Where this rank's rows sit in the global batch, as the loader
+    striped over the data axis deals them: ``(global batch, positions)``,
+    position ``data index + i * data size`` for local row i; None without
+    a process group. A preprocess draws its per-row randomness for the
+    global batch and takes these rows, so that a sample gets the draw of
+    its single-process row (and the model ranks of a data index draw
+    alike)."""
     if not world.grouped:
         return None
-    pos = world.rank + world.size * torch.arange(n_local, device=device)
-    return world.size * n_local, pos
+    pos = world.data_rank + world.data_size * torch.arange(n_local,
+                                                           device=device)
+    return world.data_size * n_local, pos
 
 
 def make_train_step(state: TrainState, preprocess: Callable | None = None,
@@ -271,13 +299,24 @@ class ClippedOptimizer:
         return InjectState(float(np.float32(learning_rate)), inner)
 
     @torch.no_grad()
-    def update(self, params: dict, grads: dict, state: InjectState) -> None:
+    def update(self, params: dict, grads: dict, state: InjectState,
+               blocks: dict | None = None) -> None:
         """One step in place over ``params`` (name -> parameter); no host
-        synchronisation."""
+        synchronisation. ``blocks`` names the column-sharded parameters
+        (name -> model world, ``sharding_rules.block_worlds``): each
+        gradient's norm is then its blocks' over the model group."""
         names = list(params)
         ps = [params[n] for n in names]
         g = [grads[n].clone() for n in names]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        norms = list(torch._foreach_norm(g))
+        sharded = [i for i, n in enumerate(names) if n in (blocks or {})]
+        if sharded:
+            sq = torch.stack([norms[i] for i in sharded]) ** 2
+            torch.distributed.all_reduce(
+                sq, group=model_group(blocks[names[sharded[0]]]))
+            for i, v in zip(sharded, sq.sqrt()):
+                norms[i] = v
+        norm = torch.linalg.vector_norm(torch.stack(norms))
         # optax: select(|g| < clip, g, (g / |g|) * clip)
         inside = norm < self.clip
         one = torch.ones((), device=norm.device)
@@ -318,11 +357,14 @@ def adam_with_clip(clip: float = 5.0, optimizer: str = "adam"):
 
 def create_seq2seq_state(model: torch.nn.Module, tx: ClippedOptimizer,
                          learning_rate: float,
-                         freeze_backbone: bool = False) -> TrainState:
+                         freeze_backbone: bool = False,
+                         world: World | None = None) -> TrainState:
     """A captioner's train state at ``learning_rate``: every parameter
     trained, or under ``freeze_backbone`` all but ``src_embed``'s. The
     optimizer state covers every parameter (a frozen one's Adam moments
-    stay zero), as the JAX driver's does."""
+    stay zero), as the JAX driver's does. With ``world`` the parameters
+    are placed by the sharding rule first."""
+    _place(model, world)
     state = TrainState(model, tx, None, 0, freeze_backbone, "src_embed")
     state.opt_state = tx.init(dict(model.named_parameters()), learning_rate)
     return state
@@ -330,11 +372,13 @@ def create_seq2seq_state(model: torch.nn.Module, tx: ClippedOptimizer,
 
 def rank_seed(seed: int, world: World) -> int:
     """The host seed of this rank's dropout and augment draws: the step's
-    seed on rank 0 (and without a group), one mixed from ``(seed, rank)``
-    on the others, so that no two ranks draw the same masks."""
-    if world.rank == 0:
+    seed on data index 0 (and without a group), one mixed from ``(seed,
+    data index)`` on the others, so that no two data indices draw the same
+    masks and the model ranks of one draw alike (else their replicated
+    weights drift apart)."""
+    if world.data_rank == 0:
         return int(seed)
-    return int(np.random.SeedSequence([int(seed), world.rank])
+    return int(np.random.SeedSequence([int(seed), world.data_rank])
                .generate_state(1, np.uint32)[0])
 
 
@@ -358,6 +402,7 @@ def make_seq2seq_train_step(state: TrainState, loss_fn: Callable):
     batch's, and the dropout masks and augment draws come from
     :func:`rank_seed`, each rank drawing for its own rows."""
     model = state.model
+    blocks = block_worlds(model)  # placed with the state, before the step
 
     def step(src, tgt, src_vl, tgt_vl, seed) -> torch.Tensor:
         world = current_world()
@@ -377,7 +422,8 @@ def make_seq2seq_train_step(state: TrainState, loss_fn: Callable):
         trained = state.trained
         grads = torch.autograd.grad(loss, list(trained.values()))
         grads, loss = all_reduce_mean(list(grads), world, loss)
-        state.tx.update(trained, dict(zip(trained, grads)), state.opt_state)
+        state.tx.update(trained, dict(zip(trained, grads)), state.opt_state,
+                        blocks)
         state.step += 1
         return loss.detach()
 

@@ -532,8 +532,8 @@ def save_features(extract, datasets, loaders, device) -> dict:
                 if world.grouped:  # this stripe's wrapped duplicates
                     pos = stripe_off + np.arange(len(idxs))
                     stripe_off += len(idxs)
-                    idxs = np.asarray(idxs)[world.rank + pos * world.size
-                                            < len(ds)]
+                    idxs = np.asarray(idxs)[
+                        world.data_rank + pos * world.data_size < len(ds)]
                 if pending is not None:
                     flush(pending)
                 pending = (staged, idxs)
@@ -731,7 +731,7 @@ def fit(args, model, loaders: dict, exp_dir: str, device):
                         profile_left = 0
                     loss, logits = train_step(images, labels)
                     n_batches += 1
-                    n_samples += len(labels) * world.size
+                    n_samples += len(labels) * world.data_size
                     if n_batches % args.log_interval == 0 or n_batches == 1:
                         loss_v = float(loss)
                         train_metrics["prf1"].update(
@@ -834,7 +834,8 @@ def run_rank(args: argparse.Namespace):
         of the global batches."""
         return DataLoader(ds, batch_size=host_batch, shuffle=sgd,
                           seed=args.seed, num_workers=workers, drop_last=sgd,
-                          num_shards=world.size, shard_id=world.rank,
+                          num_shards=world.data_size,
+                          shard_id=world.data_rank,
                           transform=None if feats else
                           _geometry_transform(args, train))
 

@@ -304,9 +304,10 @@ def rank_batches(loader):
             yield batch
             continue
         arrays, rest = tuple(batch[:4]), tuple(batch[4:])
-        (arrays), n = pad_batch(arrays, world.size)
+        (arrays), n = pad_batch(arrays, world.data_size)
         weights = (np.arange(arrays[0].shape[0]) < n).astype(np.float32)
-        yield (*shard_rows((*arrays, weights), world.rank, world.size),
+        yield (*shard_rows((*arrays, weights), world.data_rank,
+                           world.data_size),
                *rest)
 
 
@@ -387,9 +388,9 @@ def run_rank(args: argparse.Namespace, datasets=None):
         write_sentences(val_tgt, os.path.join(exp_dir, "val_gt.txt"))
         write_sentences(test_tgt, os.path.join(exp_dir, "test_gt.txt"))
 
-    loaders = {split: make_loader(args, ds, split, world.size) for split, ds
-               in (("train", data_train), ("val", data_val),
-                   ("test", data_test))}
+    loaders = {split: make_loader(args, ds, split, world.data_size)
+               for split, ds in (("train", data_train), ("val", data_val),
+                                 ("test", data_test))}
     if len(loaders["train"]) == 0:
         raise SystemExit("train loader produced zero batches: add training "
                          "captions")

@@ -13,8 +13,13 @@ runs eagerly.
 Under a process group (the JAX translator takes a ``mesh``) each rank
 decodes its own rows of a global batch, which the caller pads and deals
 out (``parallel.mesh.pad_batch`` and ``shard_rows``), and ``translate``
-returns every rank's rows, gathered in rank order (``fetch_global``). Every op of the search is per row, so a row
-decodes as it would in the whole batch.
+returns every rank's rows, gathered in rank order (``fetch_global``).
+Given a ``world`` (the counterpart of ``mesh=``), ``translate`` takes the
+global batch itself: its rows are padded to the data size, dealt over the
+data axis, gathered back and sliced to the batch, while the model ranks of
+a data index decode the same rows in lockstep over their blocks of a
+sequence-sharded memory (``NMTModel.mem_sharding``). Every op of the
+search is per row, so a row decodes as it would in the whole batch.
 
 ``build_decoder`` is the trace surface of ``tennis_torch.export``: the same
 decode for a static batch, with the search as one ``while_loop``
@@ -30,8 +35,10 @@ from tennis_torch.ops.rnn import gru_decode
 
 class BeamSearchTranslator:
     def __init__(self, model, bos_id: int, eos_id: int, beam_size: int = 4,
-                 alpha: float = 1.0, K: int = 5, max_length: int = 100):
+                 alpha: float = 1.0, K: int = 5, max_length: int = 100,
+                 world=None):
         self._model = model
+        self._world = world
         self._bos = bos_id
         self._eos = eos_id
         self._beam = beam_size
@@ -83,15 +90,23 @@ class BeamSearchTranslator:
         JAX translator casts them); returns numpy (samples (B, K, L) int32,
         scores (B, K), valid_length (B, K)). Under a process group the rows
         are this rank's and the results every rank's, in rank order (a
-        collective)."""
+        collective); with a ``world`` the rows are the global batch's, and
+        so are the results."""
         from tennis_torch.parallel.distributed import fetch_global
+        from tennis_torch.parallel.mesh import pad_batch, shard_rows
 
         dev = self.device
         src = torch.as_tensor(src, device=dev)
         if src.dtype != torch.uint8:
             src = src.float()
         vl = torch.as_tensor(src_valid_length, device=dev).to(torch.int32)
-        return fetch_global(self.translate_tensors(src, vl))
+        world = self._world
+        if world is None:
+            return fetch_global(self.translate_tensors(src, vl))
+        (src, vl), n = pad_batch((src, vl), world.data_size)
+        src, vl = shard_rows((src, vl), world.data_rank, world.data_size)
+        out = fetch_global(self.translate_tensors(src, vl))
+        return tuple(x[:n] for x in out)
 
     def translate_tokens(self, src, src_valid_length, vocab):
         """Top-beam hypotheses as token lists (BOS/EOS stripped)."""

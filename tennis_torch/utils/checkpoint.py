@@ -44,7 +44,10 @@ def _atomic_write(path: str, data: bytes) -> None:
 
 
 def save_state(path: str, tree) -> None:
-    """Atomic write of a flax-layout tree (``bridge.state_to_flax``)."""
+    """Atomic write of a flax-layout tree (``bridge.state_to_flax``). The
+    tree is whole under a model axis too: ``state_to_flax`` gathers the
+    column blocks over the model group (every model rank calls it, one
+    rank writes), so the file is the one the plain run writes."""
     _atomic_write(path, msgpack_codec.serialize(tree))
 
 
