@@ -1,0 +1,9 @@
+"""Kernel launches a traced clip train step, copies and fills left out."""
+from port_bench.metrics import _read
+
+
+def read(record):
+    ks = _read.kernels(record)
+    if not ks:
+        return None
+    return sum(v[1] for v in ks.values()) / _read.trace(record)["units"]
