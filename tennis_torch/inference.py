@@ -24,6 +24,8 @@ import os
 import numpy as np
 import torch
 
+from tennis_torch.utils.tracing import span
+
 log = logging.getLogger(__name__)
 
 
@@ -102,7 +104,8 @@ def make_extract_features(model, device: torch.device):
     :func:`prepare_input` -> ``model.features`` (a DenseNet's dense layers
     through the dense-layer kernels on a GPU; an R(2+1)D takes each clip
     whole). The input may be a tensor already on ``device`` or a host
-    array."""
+    array. The two steps are the spans ``prepare`` and ``features``
+    (:mod:`tennis_torch.utils.tracing`)."""
     from tennis_torch.models import DenseNet
 
     model = model.to(device).eval()
@@ -112,7 +115,10 @@ def make_extract_features(model, device: torch.device):
     @torch.inference_mode()
     def extract(images) -> torch.Tensor:
         x = torch.as_tensor(images).to(device)
-        return model.features(prepare_input(x, model.dtype)).float()
+        with span("prepare"):
+            x = prepare_input(x, model.dtype)
+        with span("features"):
+            return model.features(x).float()
 
     return extract
 

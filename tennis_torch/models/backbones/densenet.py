@@ -43,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from tennis_torch.ops.dense_block import densenet_features, layer_operands, \
     fold_bn
 from tennis_torch.parallel.distributed import data_group
+from tennis_torch.utils.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,81 +118,88 @@ class _BatchNormReLU(torch.autograd.Function):
     gradient is that of the sum of every rank's loss, while weight and bias
     keep this rank's share, which the train step's gradient all-reduce
     adds up (``torch.nn.SyncBatchNorm`` splits it the same way). Every rank
-    then holds the same statistics for the running update."""
+    then holds the same statistics for the running update.
+
+    The forward and the backward are the spans ``bn_forward`` and
+    ``bn_backward`` (:mod:`tennis_torch.utils.tracing`)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps, sliced, relu=True, running=None):
-        acc = torch.promote_types(x.dtype, torch.float32)
-        dims = tuple(range(x.dim() - 1))
-        sync = running is None and dist.is_available() \
-            and dist.is_initialized()
-        n = x.numel() // x.shape[-1]
-        if sync:
-            xf = x.to(acc)
-            C = x.shape[-1]
-            sums = torch.cat([xf.sum(dims), xf.square().sum(dims),
-                              xf.new_full((1,), n)])
-            del xf
-            dist.all_reduce(sums, group=data_group())
-            n = sums[-1]
-            mean = sums[:C] / n
-            var = sums[C:2 * C] / n - mean * mean
-        elif running is None:
-            xf = x.to(acc)
-            mean = xf.mean(dims)
-            var = xf.square().mean(dims) - mean * mean
-            del xf
-        else:  # frozen: the running statistics, which take no gradient
-            mean, var = (t.to(acc) for t in running)
-        live = var > 0 if not sliced else torch.ones_like(var, dtype=torch.bool)
-        if not sliced:
-            var = torch.clamp(var, min=0.0)
-        rstd = torch.rsqrt(var + eps)
-        mul = rstd * weight
-        shift = bias - mean * mul
-        if sliced:
-            y = torch.addcmul(shift.to(x.dtype), x, mul.to(x.dtype))
-        else:
-            y = torch.addcmul(shift, x, mul).to(x.dtype)
-        if relu:
-            y = torch.relu_(y)
-        ctx.save_for_backward(x, y if relu else None, weight, mean, rstd, mul,
-                              live)
-        ctx.sliced = sliced
-        ctx.frozen = running is not None
-        ctx.sync = sync
-        ctx.n = n  # the (global) count: a tensor under a group
-        ctx.mark_non_differentiable(mean, var)
-        return y, mean, var
+        with span("bn_forward"):
+            acc = torch.promote_types(x.dtype, torch.float32)
+            dims = tuple(range(x.dim() - 1))
+            sync = running is None and dist.is_available() \
+                and dist.is_initialized()
+            n = x.numel() // x.shape[-1]
+            if sync:
+                xf = x.to(acc)
+                C = x.shape[-1]
+                sums = torch.cat([xf.sum(dims), xf.square().sum(dims),
+                                  xf.new_full((1,), n)])
+                del xf
+                dist.all_reduce(sums, group=data_group())
+                n = sums[-1]
+                mean = sums[:C] / n
+                var = sums[C:2 * C] / n - mean * mean
+            elif running is None:
+                xf = x.to(acc)
+                mean = xf.mean(dims)
+                var = xf.square().mean(dims) - mean * mean
+                del xf
+            else:  # frozen: the running statistics, which take no gradient
+                mean, var = (t.to(acc) for t in running)
+            live = var > 0 if not sliced \
+                else torch.ones_like(var, dtype=torch.bool)
+            if not sliced:
+                var = torch.clamp(var, min=0.0)
+            rstd = torch.rsqrt(var + eps)
+            mul = rstd * weight
+            shift = bias - mean * mul
+            if sliced:
+                y = torch.addcmul(shift.to(x.dtype), x, mul.to(x.dtype))
+            else:
+                y = torch.addcmul(shift, x, mul).to(x.dtype)
+            if relu:
+                y = torch.relu_(y)
+            ctx.save_for_backward(x, y if relu else None, weight, mean,
+                                  rstd, mul, live)
+            ctx.sliced = sliced
+            ctx.frozen = running is not None
+            ctx.sync = sync
+            ctx.n = n  # the (global) count: a tensor under a group
+            ctx.mark_non_differentiable(mean, var)
+            return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, _mean, _var):
-        x, y, weight, mean, rstd, mul, live = ctx.saved_tensors
-        dims = tuple(range(x.dim() - 1))
-        n = ctx.n
-        acc = mean.dtype
-        g = (dy if y is None else torch.where(y > 0, dy, 0)).to(acc)
-        xf = x.to(acc)
-        d_shift = g.sum(dims)
-        gx = (g * xf).sum(dims)
-        d_mul = gx - mean * d_shift
-        m = mul.to(x.dtype).to(acc) if ctx.sliced else mul
-        if ctx.frozen:
-            dx = g * m
-        else:
-            all_shift, all_mul = d_shift, d_mul
-            if ctx.sync:  # the statistics' gradient over every rank's rows
-                C = d_shift.shape[0]
-                sums = torch.cat([d_shift, gx])
-                dist.all_reduce(sums, group=data_group())
-                all_shift = sums[:C]
-                all_mul = sums[C:] - mean * all_shift
-            d_mean = -mul * all_shift
-            d_var = torch.where(live, -0.5 * rstd ** 3 * weight * all_mul,
-                                0.0)
-            d_mean = d_mean - 2 * mean * d_var
-            dx = g * m + (d_mean / n + xf * (2 * d_var / n))
-        return dx.to(x.dtype), d_mul * rstd, d_shift, None, None, None, None
+        with span("bn_backward"):
+            x, y, weight, mean, rstd, mul, live = ctx.saved_tensors
+            dims = tuple(range(x.dim() - 1))
+            n = ctx.n
+            acc = mean.dtype
+            g = (dy if y is None else torch.where(y > 0, dy, 0)).to(acc)
+            xf = x.to(acc)
+            d_shift = g.sum(dims)
+            gx = (g * xf).sum(dims)
+            d_mul = gx - mean * d_shift
+            m = mul.to(x.dtype).to(acc) if ctx.sliced else mul
+            if ctx.frozen:
+                dx = g * m
+            else:
+                all_shift, all_mul = d_shift, d_mul
+                if ctx.sync:  # the statistics' gradient, every rank's rows
+                    C = d_shift.shape[0]
+                    sums = torch.cat([d_shift, gx])
+                    dist.all_reduce(sums, group=data_group())
+                    all_shift = sums[:C]
+                    all_mul = sums[C:] - mean * all_shift
+                d_mean = -mul * all_shift
+                d_var = torch.where(live, -0.5 * rstd ** 3 * weight * all_mul,
+                                    0.0)
+                d_mean = d_mean - 2 * mean * d_var
+                dx = g * m + (d_mean / n + xf * (2 * d_var / n))
+            return (dx.to(x.dtype), d_mul * rstd, d_shift, None, None, None,
+                    None)
 
 
 class BatchNorm(nn.Module):

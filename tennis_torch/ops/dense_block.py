@@ -55,6 +55,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from tennis_torch.utils.tracing import span
+
 BOTTLENECK = 128  # bn_size * growth_rate that the kernel takes
 GROWTH = 32
 
@@ -441,30 +443,33 @@ def dense_layer(state: torch.Tensor, c_in: int, ops: LayerOperands,
     the cluster size are resolved here from the static shapes, so a traced
     graph names the kernel it launches. Widths no kernel takes go to
     :func:`dense_layer_convs` on the card (the reference on the CPU),
-    outside the op."""
-    if variant is not None and variant not in KERNEL_VARIANTS:
-        raise ValueError(f"dense_layer variant must be one of "
-                         f"{KERNEL_VARIANTS}, not {variant!r}")
-    if state.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"dense_layer runs on cuda or cpu, not {state.device}")
-    B, H, W, _ = state.shape
-    if variant is None:
-        variant, routed = dense_layer_route(B, H, W, c_in, ops.w1.shape[0],
-                                            ops.w2.shape[2], state.dtype)
-        cluster = cluster or routed
-        if variant == "convs":
-            if state.device.type == "cpu":
-                return dense_layer_reference(state, c_in, ops)
-            dense_layer_convs(state, c_in, ops)
-            dense_layer.variant_launches["convs"] += 1
-            return state
-    if variant == "cluster" and cluster is None:
-        cluster = dense_layer_cluster_size(B, H, W, c_in)
-    images = (None, None)
-    if variant == "f32" and state.device.type == "cuda":
-        images = _tf32_weights(ops)
-    dense_layer_op(state, *ops, *images, c_in, variant, cluster or 0)
-    return state
+    outside the op. The call is the span ``dense_layer``
+    (:mod:`tennis_torch.utils.tracing`), around the op."""
+    with span("dense_layer"):
+        if variant is not None and variant not in KERNEL_VARIANTS:
+            raise ValueError(f"dense_layer variant must be one of "
+                             f"{KERNEL_VARIANTS}, not {variant!r}")
+        if state.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"dense_layer runs on cuda or cpu, not "
+                             f"{state.device}")
+        B, H, W, _ = state.shape
+        if variant is None:
+            variant, routed = dense_layer_route(
+                B, H, W, c_in, ops.w1.shape[0], ops.w2.shape[2], state.dtype)
+            cluster = cluster or routed
+            if variant == "convs":
+                if state.device.type == "cpu":
+                    return dense_layer_reference(state, c_in, ops)
+                dense_layer_convs(state, c_in, ops)
+                dense_layer.variant_launches["convs"] += 1
+                return state
+        if variant == "cluster" and cluster is None:
+            cluster = dense_layer_cluster_size(B, H, W, c_in)
+        images = (None, None)
+        if variant == "f32" and state.device.type == "cuda":
+            images = _tf32_weights(ops)
+        dense_layer_op(state, *ops, *images, c_in, variant, cluster or 0)
+        return state
 
 
 # kernel launches, so a run can show it took the kernels, and which one
@@ -496,6 +501,7 @@ def densenet_features(spec, operands: dict, x: torch.Tensor, dtype,
     2 x 2 x 1024 = 4096). ``operands`` comes from ``DenseNet.operands()``.
     ``layer`` is :func:`dense_layer`; a comparison may pass
     :func:`dense_layer_reference` to run the plain version on any device.
+    Each transition is the span ``transition``.
     """
     x = x.to(dtype)
     x = _nhwc(F.conv2d(_nchw(x), operands["conv0"], stride=2, padding=3))
@@ -516,9 +522,10 @@ def densenet_features(spec, operands: dict, x: torch.Tensor, dtype,
             channels += spec.growth_rate
         x = state
         if i != last:
-            bn, w = operands["transitions"][i]
-            x = _bn_relu(x, bn, dtype) @ w  # 1x1 conv: (C, C/2) in dtype
-            x = _nhwc(F.avg_pool2d(_nchw(x), 2, stride=2))
+            with span("transition"):
+                bn, w = operands["transitions"][i]
+                x = _bn_relu(x, bn, dtype) @ w  # 1x1 conv: (C, C/2) in dtype
+                x = _nhwc(F.avg_pool2d(_nchw(x), 2, stride=2))
             channels //= 2
 
     x = _bn_relu(x, operands["bn_final"], dtype)

@@ -52,6 +52,7 @@ from tennis_torch.parallel.distributed import current_world, data_group, \
     model_group
 from tennis_torch.parallel.mesh import World
 from tennis_torch.parallel.sharding_rules import block_worlds, place_blocks
+from tennis_torch.utils.tracing import span
 
 
 def piecewise_constant_schedule(init_value: float,
@@ -233,27 +234,40 @@ def make_train_step(state: TrainState, preprocess: Callable | None = None,
     the gradients and the loss are averaged over the ranks before the
     update (:func:`all_reduce_mean`), so every rank makes the
     single-process update of the global batch; the logits stay this
-    rank's."""
+    rank's.
+
+    Each phase is a span of :mod:`tennis_torch.utils.tracing`:
+    ``train_step`` around ``augment``, ``forward``, ``loss``,
+    ``backward``, ``grad_all_reduce`` and ``update``."""
     model = state.model
 
     def step(images: torch.Tensor, labels) -> tuple:
-        world = current_world()
-        images = torch.as_tensor(images)
-        labels = torch.as_tensor(labels, device=images.device)
-        if preprocess is not None:
-            generator = step_generator(rng_seed, state.step, images.device)
-            rows = stripe_rows(world, images.shape[0], images.device)
-            images = preprocess(images, generator) if rows is None \
-                else preprocess(images, generator, rows)
-        model.train()
-        logits = model(images, train=True)
-        loss = loss_fn(logits, labels)
-        trained = state.trained
-        grads = torch.autograd.grad(loss, list(trained.values()))
-        grads, loss = all_reduce_mean(list(grads), world, loss)
-        state.tx.update(trained, dict(zip(trained, grads)), state.opt_state)
-        state.step += 1
-        return loss.detach(), logits.detach()
+        with span("train_step"):
+            world = current_world()
+            images = torch.as_tensor(images)
+            labels = torch.as_tensor(labels, device=images.device)
+            if preprocess is not None:
+                with span("augment"):
+                    generator = step_generator(rng_seed, state.step,
+                                               images.device)
+                    rows = stripe_rows(world, images.shape[0], images.device)
+                    images = preprocess(images, generator) if rows is None \
+                        else preprocess(images, generator, rows)
+            model.train()
+            with span("forward"):
+                logits = model(images, train=True)
+            with span("loss"):
+                loss = loss_fn(logits, labels)
+            trained = state.trained
+            with span("backward"):
+                grads = torch.autograd.grad(loss, list(trained.values()))
+            with span("grad_all_reduce"):
+                grads, loss = all_reduce_mean(list(grads), world, loss)
+            with span("update"):
+                state.tx.update(trained, dict(zip(trained, grads)),
+                                state.opt_state)
+            state.step += 1
+            return loss.detach(), logits.detach()
 
     return step
 

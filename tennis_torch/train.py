@@ -150,7 +150,8 @@ def add_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
              "(0 reads the original tree; missing cache files fall back "
              "per file)")
     add("--profile_steps", type=int, default=0,
-        help="Trace this many train steps (training only)")
+        help="Trace this many train steps (training only), the port's "
+             "spans on as tennis_torch/<name> ranges")
     _add_bool(p, "multihost", "Multi-host run (with --coordinator, "
               "--num_hosts, --host_id)")
     add("--coordinator", default=None,
@@ -610,17 +611,25 @@ def _pooled_final_test(args, test_set, loader, device):
 
 
 def _profile_train_steps(step, n: int, out_dir: str, device):
-    """``n`` calls of ``step`` under torch.profiler; the trace (Chrome
-    JSON) goes to ``out_dir``."""
+    """``n`` calls of ``step`` under torch.profiler, with the port's spans
+    on (:mod:`tennis_torch.utils.tracing`: the phases and BN passes are
+    ranges ``tennis_torch/<name>`` in the trace) and off after; the trace
+    (Chrome JSON) goes to ``out_dir``."""
     from torch.profiler import ProfilerActivity, profile
+
+    from tennis_torch.utils import tracing
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        for _ in range(n):
-            loss, _ = step()
-        float(loss)  # the steps' device work ends inside the trace
+    was = tracing.enabled(True)
+    try:
+        with profile(activities=activities) as prof:
+            for _ in range(n):
+                loss, _ = step()
+            float(loss)  # the steps' device work ends inside the trace
+    finally:
+        tracing.enabled(was)
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, "train_steps.json"))
 
@@ -659,7 +668,8 @@ def fit(args, model, loaders: dict, exp_dir: str, device):
     train PRF1 sampled at
     ``--log_interval``; ``--max_batches`` ends the epoch early;
     ``--profile_steps`` traces that many steps at the second batch of the
-    first epoch into ``<exp_dir>/tb/profile``), then the val split through
+    first epoch into ``<exp_dir>/tb/profile``, with the port's spans on as
+    ranges ``tennis_torch/<name>``), then the val split through
     an eval step made anew (its BN operands folded from this epoch's
     weights), then the epoch file through the background writer, and its
     ``scores.txt`` row only after it.

@@ -249,13 +249,20 @@ def test_copied_experiment_resumes_where_it_stopped(trained, tmp_path,
 
 def test_profile_steps_and_max_batches(trained, tmp_path, monkeypatch):
     """``--profile_steps 2`` traces two extra train steps at the second
-    batch of the first epoch into ``<exp_dir>/tb/profile``;
+    batch of the first epoch into ``<exp_dir>/tb/profile``, the port's
+    phase and BN spans among its ranges, and leaves tracing off after;
     ``--max_batches 2`` ends the epoch after two batches of its own."""
+    from tennis_torch.utils import tracing
+
     monkeypatch.chdir(tmp_path)
     state = train.main([f"--root={trained['root']}", *COMMON,
                         "--model_id=t4", "--epochs=1", "--device=cpu",
                         "--profile_steps=2", "--max_batches=2"])
     exp = tmp_path / "models" / "vision" / "experiments" / "t4"
-    assert (exp / "tb" / "profile" / "train_steps.json").stat().st_size > 0
+    with open(exp / "tb" / "profile" / "train_steps.json") as f:
+        names = [e.get("name") for e in json.load(f)["traceEvents"]]
+    for span in ("train_step", "backward", "bn_forward", "bn_backward"):
+        assert names.count(tracing.PREFIX + span) >= 2, span
+    assert tracing.span("a") is tracing.span("b")
     assert state.step == int(ckpt.load_raw(str(exp / "0000.params"))["step"])
     assert state.step == 2 + 2
